@@ -1,0 +1,25 @@
+"""dvm_slam_tpu_torch — the PyTorch/CUDA port of `dvm_slam_tpu`.
+
+The JAX package stays the reference; this package mirrors its layout so each
+counterpart is found by path and name:
+
+  geometry/   SO3/SE3 Lie groups, pinhole + radial-tangential cameras
+  ops/        pyramid, FAST + grid top-k, ORB orientation + steered BRIEF
+              (plain PyTorch twin beside the hand-written CUDA kernel in
+              `ops/orb_kernel.py` + `csrc/orb_describe.cu`), Hamming matching,
+              RGB-D keypoint depth
+  frontend/   `Frame` construction (`make_frame`, `make_frame_rgbd`)
+  mapping/    struct-of-arrays `MapState`
+  tracking/   pose-only Gauss-Newton, two-stage tracking by projection
+  io/         synthetic textured-plane world
+
+Port-only glue: `device.py` (precision policy), `convert.py` (numpy-dict
+exchange of map, frame and config with the JAX package) and `_build.py`
+(nvcc build of the CUDA sources at first use).
+
+Importing this package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+from . import device  # noqa: F401  (sets the f32 precision policy)

@@ -1,0 +1,123 @@
+"""ORB feature extraction: pyramid -> FAST -> orientation -> rBRIEF.
+
+Port of `dvm_slam_tpu/frontend/extractor.py` (monocular pinhole and RGB-D
+frames; stereo and KB8 wait for the sensor-mode slice). A grayscale image
+becomes a fixed-capacity `Frame` of keypoints and unpacked binary
+descriptors; invalid slots carry `valid=False`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..geometry import cameras
+from ..ops import fast, orb_descriptor, orb_kernel, pyramid, stereo
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Static extraction parameters. Defaults follow the reference's EuRoC
+    settings: 1250 features, 8 levels x1.2, FAST thresholds 20 -> 7."""
+
+    height: int
+    width: int
+    n_features: int = 1250
+    n_levels: int = 8
+    scale_factor: float = 1.2
+    ini_th: float = 20.0
+    min_th: float = 7.0
+    cell: int = 35
+    # orientation + descriptor backend (the reference's `use_pallas`):
+    # None = the CUDA kernel for CUDA tensors, the plain twin for CPU tensors;
+    # False = always the twin; True = always the kernel (raises on the CPU)
+    use_kernel: Optional[bool] = None
+
+    @property
+    def scales(self):
+        return tuple(pyramid.level_scales(self.n_levels, self.scale_factor))
+
+    @property
+    def level_budgets(self):
+        """Features per level, geometric in 1/scale (ORBextractor ctor
+        semantics)."""
+        f = 1.0 / self.scale_factor
+        n = self.n_features
+        raw = [n * (1 - f) / (1 - f ** self.n_levels) * (f ** i) for i in range(self.n_levels)]
+        return tuple(max(8, int(round(r))) for r in raw)
+
+    @property
+    def capacity(self):
+        return sum(self.level_budgets)
+
+    @property
+    def sigma2(self):
+        """Per-level variance of keypoint position, `mvLevelSigma2`."""
+        return tuple(s * s for s in self.scales)
+
+
+class Frame(NamedTuple):
+    """Fixed-capacity feature set of one image; leading dim F =
+    config.capacity. RGB-D frames also carry `ur` (virtual right u, -1 mono)
+    and `depth` (metric, -1 unknown); monocular frames leave them None."""
+
+    xy: torch.Tensor        # [F,2] float32 undistorted keypoints, level-0 px
+    xy_raw: torch.Tensor    # [F,2] float32 raw (distorted) keypoints, level-0 px
+    level: torch.Tensor     # [F] int32 pyramid level
+    angle: torch.Tensor     # [F] float32 orientation (radians)
+    response: torch.Tensor  # [F] float32 FAST score
+    desc: torch.Tensor      # [F,256] uint8 bits in {0,1}
+    valid: torch.Tensor     # [F] bool
+    ur: Optional[torch.Tensor] = None
+    depth: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self):
+        return self.xy.shape[-2]
+
+
+def _orient_and_describe(im, blur, xy, use_kernel):
+    if use_kernel is False:
+        return orb_descriptor.orient_and_describe(im, blur, xy)
+    if use_kernel and im.device.type != "cuda":
+        raise ValueError(f"use_kernel=True needs CUDA tensors, got {im.device}")
+    return orb_kernel.orient_and_describe(im, blur, xy)
+
+
+def extract(img, config: FrontendConfig):
+    """Grayscale [H,W] (0..255, any dtype) -> Frame with keypoints in RAW
+    px; `make_frame` undistorts them."""
+    img = img.to(torch.float32)
+    levels = pyramid.build_pyramid(img, config.n_levels, config.scale_factor)
+    outs = []
+    for lv, (im, budget, s) in enumerate(zip(levels, config.level_budgets, config.scales)):
+        xy, score, valid = fast.detect_level(im, config.ini_th, config.min_th, config.cell, budget)
+        blur = pyramid.gaussian_blur(im)
+        ang, desc = _orient_and_describe(im.contiguous(), blur.contiguous(), xy, config.use_kernel)
+        lvl = torch.full((budget,), lv, dtype=torch.int32, device=img.device)
+        outs.append((xy * s, lvl, ang, score, desc, valid))
+    xy, lvl, ang, score, desc, valid = (torch.cat(c) for c in zip(*outs))
+    return Frame(xy=xy, xy_raw=xy, level=lvl, angle=ang, response=score, desc=desc, valid=valid)
+
+
+def _undistort_frame(f: Frame, K, dist):
+    xy_un = cameras.undistort_pixels(K, dist, f.xy_raw)
+    return f._replace(xy=torch.where(f.valid[:, None], xy_un, f.xy_raw))
+
+
+def make_frame(img, K, dist, config: FrontendConfig):
+    """Monocular pinhole frame (`Frame.cc:371`): extract + radial-tangential
+    keypoint undistortion."""
+    return _undistort_frame(extract(img, config), K, dist)
+
+
+def make_frame_rgbd(img, depth_map, K, dist, config: FrontendConfig, bf,
+                    depth_factor: float = 1.0):
+    """RGB-D frame (`Frame.cc:265`): mono extraction + depth lookup at each
+    keypoint, virtual right coordinate uR = u - bf/d (bf = fx * virtual
+    baseline)."""
+    f = extract(img, config)
+    ur, depth = stereo.compute_stereo_from_rgbd(f.xy_raw, f.valid, depth_map, bf, depth_factor)
+    return _undistort_frame(f, K, dist)._replace(ur=ur, depth=depth)

@@ -1,0 +1,242 @@
+"""MapState: the struct-of-arrays SLAM map.
+
+Port of the tracking slice of `dvm_slam_tpu/mapping/map_state.py`: same
+fields, dtypes and shapes, so maps cross between the packages field by
+field (`convert.py`). Like the reference, every op returns a new
+`MapState`; a field it writes is cloned first, the others are shared.
+
+Scatters follow the reference's sentinel pattern: a write that must be
+dropped targets one extra slot past the end, which is sliced off, so the
+only duplicate indices land there (`index_put_` with real duplicates is
+nondeterministic on CUDA).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry import lie
+
+
+class MapState(NamedTuple):
+    """K = keyframe capacity, P = point capacity, F = features per keyframe."""
+
+    # --- keyframes ---
+    kf_pose: torch.Tensor    # [K,7] SE3 world->camera (T_cw)
+    kf_valid: torch.Tensor   # [K] bool
+    kf_xy: torch.Tensor      # [K,F,2] undistorted keypoints (level-0 px)
+    kf_level: torch.Tensor   # [K,F] int32
+    kf_angle: torch.Tensor   # [K,F] float32
+    kf_desc: torch.Tensor    # [K,F,256] uint8 {0,1}
+    kf_feat_valid: torch.Tensor  # [K,F] bool
+    kf_obs: torch.Tensor     # [K,F] int32 -> point slot, -1 if none
+    kf_ur: torch.Tensor      # [K,F] float32 stereo right-u, -1 = monocular
+    # --- map points ---
+    pt_pos: torch.Tensor     # [P,3] world position
+    pt_valid: torch.Tensor   # [P] bool
+    pt_desc: torch.Tensor    # [P,256] uint8 representative descriptor
+    pt_normal: torch.Tensor  # [P,3] mean viewing direction
+    pt_min_dist: torch.Tensor  # [P] scale-invariance range
+    pt_max_dist: torch.Tensor  # [P]
+    pt_ref_kf: torch.Tensor  # [P] int32 reference keyframe slot
+    pt_visible: torch.Tensor  # [P] int32 nVisible
+    pt_found: torch.Tensor    # [P] int32 nFound
+    pt_first_kf: torch.Tensor  # [P] int32 kf slot at creation
+    # --- counters ---
+    n_kf: torch.Tensor       # [] int32 next keyframe slot
+    n_pt: torch.Tensor       # [] int32 next point slot
+
+    @property
+    def kf_capacity(self):
+        return self.kf_pose.shape[0]
+
+    @property
+    def pt_capacity(self):
+        return self.pt_pos.shape[0]
+
+
+def create(kf_cap: int, pt_cap: int, feat_cap: int, device=None,
+           dtype=torch.float32) -> MapState:
+    def z(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def full(shape, v, dt):
+        return torch.full(shape, v, dtype=dt, device=device)
+
+    kf_pose = z((kf_cap, 7))
+    kf_pose[:, 0] = 1.0
+    i32 = torch.int32
+    return MapState(
+        kf_pose=kf_pose,
+        kf_valid=z((kf_cap,), torch.bool),
+        kf_xy=z((kf_cap, feat_cap, 2)),
+        kf_level=z((kf_cap, feat_cap), i32),
+        kf_angle=z((kf_cap, feat_cap)),
+        kf_desc=z((kf_cap, feat_cap, 256), torch.uint8),
+        kf_feat_valid=z((kf_cap, feat_cap), torch.bool),
+        kf_obs=full((kf_cap, feat_cap), -1, i32),
+        kf_ur=full((kf_cap, feat_cap), -1.0, dtype),
+        pt_pos=z((pt_cap, 3)),
+        pt_valid=z((pt_cap,), torch.bool),
+        pt_desc=z((pt_cap, 256), torch.uint8),
+        pt_normal=z((pt_cap, 3)),
+        pt_min_dist=z((pt_cap,)),
+        pt_max_dist=z((pt_cap,)),
+        pt_ref_kf=full((pt_cap,), -1, i32),
+        pt_visible=z((pt_cap,), i32),
+        pt_found=z((pt_cap,), i32),
+        pt_first_kf=full((pt_cap,), -1, i32),
+        n_kf=z((), i32),
+        n_pt=z((), i32),
+    )
+
+
+# --------------------------------------------------------------------------
+# derived structures
+# --------------------------------------------------------------------------
+
+def incidence(m: MapState):
+    """[K,P] bool observation incidence (KF k observes point p), built by a
+    scatter into a sentinel column P rather than the reference's [K,F,P]
+    compare (164 MB per 16-row tile at F=1250, P=8192)."""
+    K = m.kf_capacity
+    P = m.pt_capacity
+    obs = torch.where(m.kf_obs >= 0, m.kf_obs, P).to(torch.int64)
+    M = torch.zeros((K, P + 1), dtype=torch.bool, device=obs.device)
+    M.scatter_(1, obs, True)
+    return M[:, :P] & m.kf_valid[:, None] & m.pt_valid[None, :]
+
+
+# --------------------------------------------------------------------------
+# mutation ops
+# --------------------------------------------------------------------------
+
+def _set_row(arr, i, value):
+    out = arr.clone()
+    out.index_copy_(0, i.reshape(1).to(torch.int64), value.to(arr.dtype)[None])
+    return out
+
+
+def add_keyframe(m: MapState, pose, xy, level, angle, desc, feat_valid, obs,
+                 ur=None):
+    """Append a keyframe at slot n_kf. obs: [F] int32 point slots (-1 none);
+    ur: optional [F] stereo right-u (-1 mono). Returns (map, slot)."""
+    i = m.n_kf
+    if ur is None:
+        ur = torch.full(xy.shape[:1], -1.0, dtype=m.kf_ur.dtype, device=xy.device)
+    m = m._replace(
+        kf_pose=_set_row(m.kf_pose, i, pose),
+        kf_valid=_set_row(m.kf_valid, i, torch.ones((), dtype=torch.bool, device=i.device)),
+        kf_xy=_set_row(m.kf_xy, i, xy),
+        kf_level=_set_row(m.kf_level, i, level),
+        kf_angle=_set_row(m.kf_angle, i, angle),
+        kf_desc=_set_row(m.kf_desc, i, desc),
+        kf_feat_valid=_set_row(m.kf_feat_valid, i, feat_valid),
+        kf_obs=_set_row(m.kf_obs, i, obs),
+        kf_ur=_set_row(m.kf_ur, i, ur),
+        n_kf=m.n_kf + 1,
+    )
+    return m, i
+
+
+def add_points(m: MapState, pos, desc, normal, min_dist, max_dist, ref_kf, valid):
+    """Append up to N points at slots [n_pt, n_pt+N): only rows with
+    valid=True are activated, consumed contiguously so row r lands at slot
+    n_pt + cumsum(valid)[r]-1. Returns (map, slot [N], -1 where dropped)."""
+    n = pos.shape[0]
+    P = m.pt_capacity
+    dev = pos.device
+    rank = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = torch.where(valid, m.n_pt + rank, P)
+    w = valid & (slot < P)
+    slot_c = torch.where(w, slot, P).to(torch.int64)  # dropped rows -> pad row
+
+    def scat(arr, vals):
+        pad = torch.zeros((1,) + arr.shape[1:], dtype=arr.dtype, device=dev)
+        big = torch.cat([arr, pad])
+        big.index_copy_(0, slot_c, vals.to(arr.dtype))
+        return big[:-1]
+
+    ref = torch.as_tensor(ref_kf, dtype=torch.int32, device=dev).expand(n)
+    ones = torch.ones((n,), dtype=torch.int32, device=dev)
+    m = m._replace(
+        pt_pos=scat(m.pt_pos, pos),
+        pt_valid=scat(m.pt_valid, w),
+        pt_desc=scat(m.pt_desc, desc),
+        pt_normal=scat(m.pt_normal, normal),
+        pt_min_dist=scat(m.pt_min_dist, min_dist),
+        pt_max_dist=scat(m.pt_max_dist, max_dist),
+        pt_ref_kf=scat(m.pt_ref_kf, ref),
+        pt_first_kf=scat(m.pt_first_kf, ref),
+        pt_visible=scat(m.pt_visible, ones),
+        pt_found=scat(m.pt_found, ones),
+        n_pt=torch.clamp(m.n_pt + torch.sum(w, dtype=torch.int32), max=P),
+    )
+    return m, torch.where(w, slot, -1)
+
+
+def predict_scale(dist, max_dist, n_levels: int, scale_factor: float):
+    """`MapPoint::PredictScale`: level = ceil(log(max_dist/dist)/log(sf))."""
+    ratio = torch.clamp(max_dist, min=1e-9) / torch.clamp(dist, min=1e-9)
+    log_sf = float(np.float32(np.log(scale_factor)))  # the reference divides in f32
+    lv = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_sf)
+    return torch.clamp(lv, 0, n_levels - 1).to(torch.int32)
+
+
+def update_point_stats(m: MapState, n_levels: int, scale_factor: float,
+                       with_desc: bool = True):
+    """Recompute normals, distance ranges and (with_desc) representative
+    descriptors of all valid points in one batched pass
+    (`MapPoint::UpdateNormalAndDepth` + `ComputeDistinctiveDescriptors`).
+
+    The descriptor is the per-bit majority vote of the observing keyframes'
+    descriptors, counted in int32, so it is exact. `with_desc=False` refreshes
+    the geometry only (the post-BA refresh of the reference)."""
+    K, F = m.kf_obs.shape
+    P = m.pt_capacity
+    dev = m.pt_pos.device
+    M = incidence(m)                                   # [K,P]
+    counts = torch.clamp(torch.sum(M, dim=0, dtype=torch.int32), min=1)
+    centers = lie.se3_t(lie.se3_inv(m.kf_pose))        # [K,3] camera centers
+
+    diff = m.pt_pos[None, :, :] - centers[:, None, :]  # [K,P,3]
+    dist = torch.linalg.norm(diff, dim=-1)             # [K,P]
+    dirs = diff / torch.clamp(dist[..., None], min=1e-9)
+    normal = torch.einsum("kp,kpd->pd", M.to(dirs.dtype), dirs) / counts[:, None]
+
+    # scale-invariance distances from the reference keyframe observation
+    ref = torch.clamp(m.pt_ref_kf, min=0).to(torch.int64)
+    p_idx = torch.arange(P, device=dev)
+    ref_dist = dist[ref, p_idx]
+    # level of the (first) feature of the ref keyframe observing each point
+    hit = (m.kf_obs[ref] == p_idx[:, None].to(torch.int32)).to(torch.uint8)  # [P,F]
+    feat_idx = torch.argmax(hit, dim=-1)
+    lv = m.kf_level[ref, feat_idx]
+    sf = torch.pow(torch.full((), scale_factor, dtype=m.pt_pos.dtype, device=dev),
+                   lv.to(m.pt_pos.dtype))
+    max_d = ref_dist * sf
+    min_d = max_d / (scale_factor ** (n_levels - 1))
+
+    keep = m.pt_valid
+    out = m._replace(
+        pt_normal=torch.where(keep[:, None], normal, m.pt_normal),
+        pt_max_dist=torch.where(keep, max_d, m.pt_max_dist),
+        pt_min_dist=torch.where(keep, min_d, m.pt_min_dist),
+    )
+    if not with_desc:
+        return out
+
+    # feature index per (k, p): scatter f to [k, obs[k,f]]; dropped slots
+    # (obs < 0) all land in the sentinel column P
+    obs = torch.where(m.kf_obs >= 0, m.kf_obs, P).to(torch.int64)
+    feats = torch.arange(F, dtype=torch.int32, device=dev).expand(K, F)
+    feat_of = torch.zeros((K, P + 1), dtype=torch.int32, device=dev)
+    feat_of.scatter_(1, obs, feats)
+    feat_of = feat_of[:, :P].clamp(0, F - 1).to(torch.int64)
+    dsel = m.kf_desc[torch.arange(K, device=dev)[:, None], feat_of]   # [K,P,256]
+    votes = torch.where(M[:, :, None], dsel, 0).sum(0, dtype=torch.int32)  # [P,256]
+    desc = (votes * 2 > counts[:, None]).to(torch.uint8)
+    return out._replace(pt_desc=torch.where(keep[:, None], desc, m.pt_desc))

@@ -1,0 +1,93 @@
+"""Pose-only optimization (motion-only bundle adjustment), monocular.
+
+Port of `dvm_slam_tpu/tracking/pose_opt.py::pose_optimization` (stereo rows
+wait for the sensor-mode slice): 4 outer rounds x 10 Gauss-Newton
+iterations, Huber kernel at delta = sqrt(5.991), chi2(2 dof) = 5.991 outlier
+re-classification between rounds, outliers excluded from the next round.
+The damping decays x0.3 per iteration, as in the reference: a constant
+damping leaves the weak forward-translation direction unconverged every
+round, and the motion model compounds that undershoot.
+
+Jacobians are [6, N] planes (left-multiplied se3 tangent (v, omega) at
+zero), with pc = T X, r = uv - pi(pc), a00 = fx/z, a02 = -fx x/z^2,
+a11 = fy/z, a12 = -fy y/z^2:
+  J_u = [-a00, 0, -a02, -a02*y, -a00*z + a02*x,  a00*y]
+  J_v = [0, -a11, -a12,  a11*z - a12*y,  a12*x, -a11*x]
+
+The 6x6 solve is `torch.linalg.solve_ex`, which does not wait on the device
+to check for a singular matrix; a non-finite step becomes zero instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..geometry import lie
+
+CHI2_MONO = 5.991
+HUBER_DELTA = math.sqrt(CHI2_MONO)
+
+
+def _residuals_and_planes(T, pts, uv, K):
+    """Returns (r [N,2], z [N], Ju [6,N], Jv [6,N])."""
+    pc = lie.quat_rotate(lie.se3_q(T)[None], pts) + lie.se3_t(T)[None]
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    inv_z = 1.0 / zs
+    u_pred = K[0] * x * inv_z + K[2]
+    v_pred = K[1] * y * inv_z + K[3]
+    r = uv - torch.stack([u_pred, v_pred], dim=-1)
+
+    a00 = K[0] * inv_z
+    a02 = -K[0] * x * inv_z * inv_z
+    a11 = K[1] * inv_z
+    a12 = -K[1] * y * inv_z * inv_z
+    zero = torch.zeros_like(x)
+    Ju = torch.stack([-a00, zero, -a02, -a02 * y, -a00 * z + a02 * x, a00 * y])
+    Jv = torch.stack([zero, -a11, -a12, a11 * z - a12 * y, a12 * x, -a11 * x])
+    return r, z, Ju, Jv
+
+
+def pose_optimization(T_init, pts, uv, sigma2, valid, K,
+                      rounds: int = 4, iters: int = 10, damping: float = 1e-3):
+    """Optimize a world->camera pose against fixed 3D points.
+
+    T_init [7]; pts [N,3] world points; uv [N,2] observed undistorted
+    pixels; sigma2 [N] level variance (px^2); valid [N] bool; K [4].
+    Returns (T [7], inliers [N] bool, chi2 [N])."""
+    dt = T_init.dtype
+    info = 1.0 / torch.clamp(sigma2, min=1e-12)
+    eye = torch.eye(6, dtype=dt, device=T_init.device)
+
+    def chi2_of(T):
+        r, z, _, _ = _residuals_and_planes(T, pts, uv, K)
+        return torch.sum(r * r, dim=-1) * info, z
+
+    def gn_round(T, active):
+        for i in range(iters):
+            r, z, Ju, Jv = _residuals_and_planes(T, pts, uv, K)
+            chi2 = torch.sum(r * r, dim=-1) * info
+            rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+            w = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * active
+            Juw = Ju * w
+            Jvw = Jv * w
+            H = Juw @ Ju.T + Jvw @ Jv.T
+            b = Juw @ r[:, 0] + Jvw @ r[:, 1]
+            H = H + (damping * 0.3 ** i) * eye * (1.0 + torch.trace(H) / 6.0)
+            dx = torch.linalg.solve_ex(H, -b)[0]
+            dx = torch.where(torch.all(torch.isfinite(dx)), dx, torch.zeros_like(dx))
+            T = lie.se3_retract(T, dx)
+        return T
+
+    active = valid.to(dt)
+    T = T_init
+    for _ in range(rounds):
+        T = gn_round(T, active)
+        chi2, z = chi2_of(T)
+        active = (valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dt)
+
+    chi2, z = chi2_of(T)
+    inliers = valid & (chi2 <= CHI2_MONO) & (z > 0)
+    return T, inliers, chi2

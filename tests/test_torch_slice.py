@@ -1,0 +1,220 @@
+"""Slice parity: the port's per-frame step (`make_frame` + `track_frame`)
+against the JAX package, on `__graft_entry__`'s flagship setup and on a rendered
+synthetic sequence, plus the port's import and dispatch contracts.
+
+Run as a script, this file performs the JAX package's CPU reference run at
+EuRoC geometry (480x752, 1250 features, 8 levels, pt_cap 8192; the frames
+`chip_smoke.py` tracks on the card) and prints its per-frame inliers and
+translation errors as JSON:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_slice.py
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dvm_slam_tpu.frontend import extractor as jex
+from dvm_slam_tpu.geometry import lie as jlie
+from dvm_slam_tpu.io import synthetic as jsyn
+from dvm_slam_tpu.mapping import map_state as jms
+from dvm_slam_tpu.tracking import tracker as jtrk
+
+from dvm_slam_tpu_torch import convert
+from dvm_slam_tpu_torch.frontend import extractor as tex
+from dvm_slam_tpu_torch.geometry import lie as tlie
+from dvm_slam_tpu_torch.io import synthetic as tsyn
+from dvm_slam_tpu_torch.mapping import map_state as tms
+from dvm_slam_tpu_torch.tracking import tracker as ttrk
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EUROC_K = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+
+
+def _scene(h, w, tex_size, n_frames):
+    """The benchmark scene at (h, w): EuRoC intrinsics scaled to the width,
+    the JAX world's renders of the first n_frames poses and frame 0's
+    depth."""
+    K = EUROC_K * np.float32(w / 752)
+    world = jsyn.PlaneWorld(seed=7, tex_size=tex_size, plane_z=6.0, extent=36.0)
+    poses = jsyn.smooth_trajectory(60, lateral=2.5, forward=0.8, yaw=0.1)[:n_frames]
+    Kj = jnp.asarray(K)
+    imgs = [np.array(world.render(jnp.asarray(p), Kj, h, w)) for p in poses]
+    depth0 = np.array(world.render_depth(jnp.asarray(poses[0]), Kj, h, w))
+    return K, poses, imgs, depth0
+
+
+def _center_err(T_cw, T_gt):
+    c = np.asarray(jlie.se3_t(jlie.se3_inv(jnp.asarray(T_cw))))
+    g = np.asarray(jlie.se3_t(jlie.se3_inv(jnp.asarray(T_gt))))
+    return float(np.linalg.norm(c - g))
+
+
+def jax_run(cfg, K, poses, imgs, depth0):
+    """Depth bootstrap from frame 0, then motion-model tracking of frames
+    1.. with `make_and_track`. Returns (n_created, [(n_inliers, T_cw,
+    translation error)])."""
+    fc = cfg.frontend
+    Kj, dist = jnp.asarray(K), jnp.zeros(4)
+    f0 = jex.make_frame_rgbd(jnp.asarray(imgs[0]), jnp.asarray(depth0), Kj, dist, fc,
+                             jnp.float32(K[0] * cfg.baseline))
+    m = jms.create(cfg.kf_cap, cfg.pt_cap, fc.capacity)
+    m, _ = jms.add_keyframe(m, jlie.se3_identity(), f0.xy, f0.level, f0.angle, f0.desc,
+                            f0.valid, jnp.full((fc.capacity,), -1, jnp.int32), ur=f0.ur)
+    m, n = jtrk.create_points_from_depth(m, jnp.int32(0), f0, Kj, jnp.float32(1e9),
+                                         fc.n_levels, fc.scale_factor)
+    T, vel, out = jlie.se3_identity(), jlie.se3_identity(), []
+    for img, gt in zip(imgs[1:], poses[1:]):
+        _, res, pv, pf = jtrk.make_and_track(jnp.asarray(img), m, jlie.se3_mul(vel, T),
+                                             Kj, dist, cfg)
+        m = m._replace(pt_visible=pv, pt_found=pf)
+        good = res.n_inliers >= cfg.min_track_inliers
+        vel = jnp.where(good, jlie.se3_mul(res.T_cw, jlie.se3_inv(T)), jlie.se3_identity())
+        T = jnp.where(good, res.T_cw, T)
+        out.append((int(res.n_inliers), np.asarray(T), _center_err(T, gt)))
+    return int(n), out
+
+
+def port_run(tcfg, K, imgs, depth0, device="cpu"):
+    """The same run through the port."""
+    Kt = torch.from_numpy(K).to(device)
+    dist = torch.zeros(4, device=device)
+    f0 = tex.make_frame_rgbd(torch.from_numpy(imgs[0]).to(device),
+                             torch.from_numpy(depth0).to(device), Kt, dist,
+                             tcfg.frontend, float(K[0]) * tcfg.baseline)
+    m = tms.create(tcfg.kf_cap, tcfg.pt_cap, tcfg.frontend.capacity, device=device)
+    m, n = ttrk.bootstrap_from_depth(m, f0, Kt, tcfg)
+    T, vel, out = tlie.se3_identity(device=device), tlie.se3_identity(device=device), []
+    for img in imgs[1:]:
+        _, res, pv, pf = ttrk.make_and_track(torch.from_numpy(img).to(device), m,
+                                             tlie.se3_mul(vel, T), Kt, dist, tcfg)
+        m = m._replace(pt_visible=pv, pt_found=pf)
+        T, vel = ttrk.motion_model_step(T, res, tcfg)
+        out.append((int(res.n_inliers), T.cpu().numpy()))
+    return int(n), out
+
+
+class TestSyntheticRun:
+    def test_six_frames_match_jax(self):
+        """120x160, tex_size 256, 300 features on 4 levels: the same points
+        created, the same inlier count every frame (exact) and the same poses
+        (atol 1e-3: f32 Gauss-Newton sums in another order)."""
+        K, poses, imgs, depth0 = _scene(120, 160, 256, 6)
+        fc = jex.FrontendConfig(height=120, width=160, n_features=300, n_levels=4)
+        cfg = jtrk.TrackerConfig(frontend=fc, kf_cap=8, pt_cap=1024, fps=20.0)
+        tcfg = convert.tracker_config_from_dict(dataclasses.asdict(cfg))
+        n_j, out_j = jax_run(cfg, K, poses, imgs, depth0)
+        n_t, out_t = port_run(tcfg, K, imgs, depth0)
+        assert n_t == n_j > 0
+        assert [o[0] for o in out_t] == [o[0] for o in out_j]
+        assert max(o[0] for o in out_j) >= 15  # the run really tracks
+        for (_, Tj, _), (_, Tt) in zip(out_j, out_t):
+            np.testing.assert_allclose(Tt, Tj, atol=1e-3)
+
+    def test_world_matches_jax(self):
+        """Texture and plane layout come from the same numpy draws: the
+        texture is identical. Renders agree to 0.05 grey levels (f32 ray
+        arithmetic in another fusion order), depth to 1e-4 m, trajectory
+        poses to 1e-6."""
+        K, poses, imgs, depth0 = _scene(60, 80, 256, 3)
+        tw = tsyn.PlaneWorld(seed=7, tex_size=256, plane_z=6.0, extent=36.0)
+        jw = jsyn.PlaneWorld(seed=7, tex_size=256, plane_z=6.0, extent=36.0)
+        np.testing.assert_array_equal(tw.texture.numpy(), np.asarray(jw.texture))
+        np.testing.assert_array_equal(tw.planes, jw.planes)
+        tposes = tsyn.smooth_trajectory(60, lateral=2.5, forward=0.8, yaw=0.1)[:3]
+        for tp, p in zip(tposes, poses):
+            np.testing.assert_allclose(tp, p, atol=1e-6)
+        for p, img in zip(poses, imgs):
+            np.testing.assert_allclose(tw.render(np.array(p), K, 60, 80).numpy(), img, atol=0.05)
+        np.testing.assert_allclose(tw.render_depth(np.array(poses[0]), K, 60, 80).numpy(), depth0,
+                                   atol=1e-4)
+
+
+class TestFlagshipStep:
+    def test_track_frame_matches_entry(self):
+        """`__graft_entry__.entry()`'s setup: identical n_inliers, n_stage1
+        and obs, T_cw to 1e-4."""
+        sys.path.insert(0, REPO)
+        import __graft_entry__ as ge
+
+        cfg, m, img, T, K = ge._small_setup()
+        fn, args = ge.entry()
+        T_j, n_j = fn(*args)
+        fj = jex.make_frame(img, K, jnp.zeros(4), cfg.frontend)
+        rj = jtrk.track_frame(m, fj, T, K, cfg)
+
+        tcfg = convert.tracker_config_from_dict(dataclasses.asdict(cfg))
+        mt = convert.map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+        Kt = torch.from_numpy(np.array(K))
+        ft = tex.make_frame(torch.from_numpy(np.array(img)), Kt, torch.zeros(4), tcfg.frontend)
+        rt = ttrk.track_frame(mt, ft, torch.from_numpy(np.array(T)), Kt, tcfg)
+        assert int(rt.n_inliers) == int(n_j) == int(rj.n_inliers)
+        assert int(rt.n_stage1) == int(rj.n_stage1)
+        np.testing.assert_array_equal(rt.obs.numpy(), np.asarray(rj.obs))
+        np.testing.assert_array_equal(rt.visible.numpy(), np.asarray(rj.visible))
+        np.testing.assert_array_equal(rt.found.numpy(), np.asarray(rj.found))
+        np.testing.assert_allclose(rt.T_cw.numpy(), np.asarray(T_j), atol=1e-4)
+
+
+class TestPortContracts:
+    def test_import_leaves_jax_out(self):
+        code = ("import sys; import dvm_slam_tpu_torch.tracking.tracker, "
+                "dvm_slam_tpu_torch.io.synthetic, dvm_slam_tpu_torch.convert, "
+                "dvm_slam_tpu_torch.ops.orb_kernel; "
+                "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+                "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu']; "
+                "print(bad); sys.exit(1 if bad else 0)")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    def test_import_sets_precision_policy(self):
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+
+    def test_use_kernel_true_on_cpu_raises(self):
+        fc = tex.FrontendConfig(height=96, width=128, n_features=96, n_levels=4, use_kernel=True)
+        img = torch.from_numpy(np.random.RandomState(0).rand(96, 128).astype(np.float32) * 255)
+        with pytest.raises(ValueError, match="CUDA"):
+            tex.extract(img, fc)
+
+    def test_config_round_trip(self):
+        fc = jex.FrontendConfig(height=96, width=128, n_features=96, n_levels=4)
+        cfg = jtrk.TrackerConfig(frontend=fc, kf_cap=8, pt_cap=256, fps=10.0)
+        d = dataclasses.asdict(cfg)
+        tcfg = convert.tracker_config_from_dict(d)
+        assert tcfg.frontend.capacity == fc.capacity
+        assert tcfg.frontend.level_budgets == fc.level_budgets
+        assert convert.tracker_config_to_dict(tcfg) == d
+
+
+def _reference_main():
+    """The JAX package's CPU reference run of the smoke's frames."""
+    n_frames = 30
+    K, poses, imgs, depth0 = _scene(480, 752, 2048, n_frames)
+    fc = jex.FrontendConfig(height=480, width=752, n_features=1250)
+    cfg = jtrk.TrackerConfig(frontend=fc, kf_cap=128, pt_cap=8192, fps=20.0)
+    n, out = jax_run(cfg, K, poses, imgs, depth0)
+    print(json.dumps({
+        "n_created": n,
+        "n_inliers": [o[0] for o in out],
+        "trans_err_m": [round(o[2], 6) for o in out],
+        "max_trans_err_m": round(max(o[2] for o in out), 6),
+    }))
+
+
+if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    _reference_main()
