@@ -3,14 +3,19 @@
 The JAX package stays the reference; this package mirrors its layout so each
 counterpart is found by path and name:
 
-  geometry/   SO3/SE3 Lie groups, pinhole + radial-tangential cameras
+  geometry/   SO3/SE3 Lie groups, pinhole + radial-tangential cameras,
+              two-view DLT triangulation
   ops/        pyramid, FAST + grid top-k, ORB orientation + steered BRIEF
               (plain PyTorch twin beside the hand-written CUDA kernel in
-              `ops/orb_kernel.py` + `csrc/orb_describe.cu`), Hamming matching,
-              RGB-D keypoint depth
+              `ops/orb_kernel.py` + `csrc/orb_describe.cu`), Hamming and
+              epipolar matching, RGB-D keypoint depth, BA's adjoint scatter
+              and point gather (plain versions in `ops/scatter.py`, CUDA
+              kernels in `ops/scatter_kernel.py` + `csrc/onehot_scatter.cu`)
   frontend/   `Frame` construction (`make_frame`, `make_frame_rgbd`)
-  mapping/    struct-of-arrays `MapState`
-  tracking/   pose-only Gauss-Newton, two-stage tracking by projection
+  mapping/    struct-of-arrays `MapState`, the per-keyframe mapper chain
+              (cull, triangulate, fuse, windowed BA)
+  tracking/   pose-only Gauss-Newton, two-stage tracking by projection, the
+              full per-frame step `autonomous_step`
   io/         synthetic textured-plane world
 
 Port-only glue: `device.py` (precision policy), `convert.py` (numpy-dict

@@ -1,12 +1,14 @@
 """Exchange of state between the JAX package and the port.
 
-The port carries no weights; what crosses is the map, frames and configs.
+The port carries no weights; what crosses is the map, frames, the
+autonomous tracker state and configs.
 Both packages use the same field names, dtypes and shapes, so a JAX
 `MapState` or `Frame` given as a dict of numpy arrays (`x._asdict()` with
 each leaf passed through `np.asarray`) becomes the port's NamedTuple of
 tensors and back, and a `TrackerConfig` crosses as the dict of
 `dataclasses.asdict`. The JAX front end's `use_pallas` maps to the port's
-`use_kernel`.
+`use_kernel`. `autonomous_step`'s `mapper_cfg` is a plain tuple of Python
+numbers in both packages and crosses as it is.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from .frontend.extractor import Frame, FrontendConfig
 from .mapping.map_state import MapState
-from .tracking.tracker import TrackerConfig
+from .tracking.tracker import AutoState, TrackerConfig
 
 
 def _to_tensors(cls, arrays: dict, device):
@@ -44,6 +46,14 @@ def frame_from_numpy(arrays: dict, device=None) -> Frame:
 
 def frame_to_numpy(f: Frame) -> dict:
     return _to_numpy(f)
+
+
+def auto_state_from_numpy(arrays: dict, device=None) -> AutoState:
+    return _to_tensors(AutoState, arrays, device)
+
+
+def auto_state_to_numpy(st: AutoState) -> dict:
+    return _to_numpy(st)
 
 
 def tracker_config_from_dict(d: dict) -> TrackerConfig:

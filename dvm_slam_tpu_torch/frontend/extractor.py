@@ -30,9 +30,11 @@ class FrontendConfig:
     ini_th: float = 20.0
     min_th: float = 7.0
     cell: int = 35
-    # orientation + descriptor backend (the reference's `use_pallas`):
-    # None = the CUDA kernel for CUDA tensors, the plain twin for CPU tensors;
-    # False = always the twin; True = always the kernel (raises on the CPU)
+    # kernel backend (the reference's `use_pallas`), for K1 here and for the
+    # BA kernels K2/K3 of the mapper chain that `autonomous_step` runs:
+    # None = the CUDA kernels for CUDA tensors, the plain versions for CPU
+    # tensors; False = always the plain versions; True = always the kernels
+    # (raises on the CPU)
     use_kernel: Optional[bool] = None
 
     @property

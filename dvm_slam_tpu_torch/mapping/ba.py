@@ -1,0 +1,279 @@
+"""Windowed Levenberg-Marquardt bundle adjustment with Schur complement.
+
+Port of the monocular path of `dvm_slam_tpu/mapping/ba.py::bundle_adjust`
+(`Optimizer::LocalBundleAdjustment` semantics). Stereo rows (`kf_ur`/`bf`)
+wait for the sensor-mode slice and `bundle_adjust_pcg` for global BA.
+
+Same layout as the reference: observation-indexed tensors keep F or P last
+(camera Jacobian planes [6,L,F], point planes [3,L,F], point blocks
+[3,3,P] / [L,6,3,P]). Per LM step the point positions are gathered to the
+observations once (K3, `ops/scatter.py::onehot_gather`) and the 30 value
+planes of H_pp, b_p and W are scattered to the points once (K2,
+`onehot_adjoint`). The reduced camera system S = H_cc - W H_pp^-1 W^T is one
+[6L,3P] x [3P,6L] `torch.matmul`, solved by 32 iterations of block-Jacobi
+PCG. Huber kernel at sqrt(5.991) px; the reference's two-stage scheme
+(outlier edges dropped after `iters` accepted steps) and its deferred LM
+acceptance (revert to the best state, raise lambda) are copied step for
+step, with one repair: a non-finite cost is rejected, where the reference
+accepts it. Every decision stays on the device (`torch.where`): the solve
+never waits for the host.
+
+The bf16 adjoint of the reference is TPU-only; the port holds BA to the
+f32 CPU reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..geometry import lie
+from ..ops import scatter
+
+CHI2_MONO = 5.991
+HUBER_DELTA = math.sqrt(CHI2_MONO)
+
+
+def _block_jacobi_pcg(Sm, Minv_d, r0, iters: int):
+    """PCG on the dense SPD reduced camera system with 6x6 block-Jacobi
+    preconditioning, `iters` fixed iterations. Sm [6L,6L], Minv_d [L,6,6]
+    inverse diagonal blocks, r0 [6L]."""
+    L = Minv_d.shape[0]
+
+    def precond(r):
+        return (Minv_d @ r.reshape(L, 6, 1)).reshape(-1)
+
+    x = torch.zeros_like(r0)
+    r = r0
+    z = precond(r0)
+    p = z
+    rz = torch.dot(r0, z)
+    for _ in range(iters):
+        Ap = Sm @ p
+        alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rzn = torch.dot(r, z)
+        beta = rzn / torch.clamp(rz, min=1e-30)
+        p = z + beta * p
+        rz = rzn
+    return x
+
+
+def _cofactors(a, b, c, d, e, f, g, h, i):
+    return [[e * i - f * h, c * h - b * i, b * f - c * e],
+            [f * g - d * i, a * i - c * g, c * d - a * f],
+            [d * h - e * g, b * g - a * h, a * e - b * d]]
+
+
+def inv3x3_planes(A, eps: float = 1e-12):
+    """Closed-form 3x3 inverse in plane-major layout: A [3,3,...] with the
+    batch in trailing dims -> [3,3,...]."""
+    C = _cofactors(A[0, 0], A[0, 1], A[0, 2], A[1, 0], A[1, 1], A[1, 2],
+                   A[2, 0], A[2, 1], A[2, 2])
+    det = A[0, 0] * C[0][0] + A[0, 1] * C[1][0] + A[0, 2] * C[2][0]
+    inv_det = 1.0 / torch.where(torch.abs(det) < eps, eps, det)
+    return torch.stack([torch.stack(r) for r in C]) * inv_det[None, None]
+
+
+def inv3x3(A, eps: float = 1e-12):
+    """Closed-form batched 3x3 inverse (adjugate / det): [...,3,3]."""
+    C = _cofactors(A[..., 0, 0], A[..., 0, 1], A[..., 0, 2], A[..., 1, 0], A[..., 1, 1],
+                   A[..., 1, 2], A[..., 2, 0], A[..., 2, 1], A[..., 2, 2])
+    det = A[..., 0, 0] * C[0][0] + A[..., 0, 1] * C[1][0] + A[..., 0, 2] * C[2][0]
+    inv_det = 1.0 / torch.where(torch.abs(det) < eps, eps, det)
+    M = torch.stack([torch.stack(r, -1) for r in C], -2)
+    return M * inv_det[..., None, None]
+
+
+def _inv6x6_block(H, eps: float = 1e-12):
+    """Batched 6x6 inverse via the 2x2-of-3x3 block Schur complement.
+    H: [...,6,6], assumed invertible (damped)."""
+    A, B = H[..., :3, :3], H[..., :3, 3:]
+    C, D = H[..., 3:, :3], H[..., 3:, 3:]
+    Ai = inv3x3(A, eps)
+    Si = inv3x3(D - C @ Ai @ B, eps)
+    AiB = Ai @ B
+    CAi = C @ Ai
+    top = torch.cat([Ai + AiB @ Si @ CAi, -AiB @ Si], -1)
+    bot = torch.cat([-Si @ CAi, Si], -1)
+    return torch.cat([top, bot], -2)
+
+
+def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
+                  iters: int = 10, damping: float = 1e-4, stage2_iters: int = 5,
+                  kf_ur=None, bf=None, schur_iters: int = 32, use_kernel=None):
+    """Windowed BA. kf_pose [L,7] world->camera; kf_fixed [L] bool; kf_xy
+    [L,F,2]; kf_sigma2 [L,F]; obs_pt [L,F] int32 row into `pts` (-1 none);
+    pts [P,3]; pt_opt [P] bool; K [4]. `use_kernel` picks K2/K3 or their
+    plain versions (`ops/scatter.py`). Runs `iters + stage2_iters + 1` LM
+    steps, each with one K3 and one K2 call, then one final K3 residual
+    pass. Returns (kf_pose', pts', total_chi2, inlier_mask [L,F])."""
+    if kf_ur is not None or bf is not None:
+        raise NotImplementedError("stereo BA rows are not ported")
+    L, F = obs_pt.shape
+    P = pts.shape[0]
+    dtype = pts.dtype
+    dev = pts.device
+
+    info = 1.0 / torch.clamp(kf_sigma2, min=1e-12)
+    obs_valid = obs_pt >= 0
+    pidx = torch.clamp(obs_pt, min=0).to(torch.int64)
+    free_cam = (~kf_fixed).to(dtype)                               # [L]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    pidx_adj = torch.where(obs_valid, obs_pt, -1).to(torch.int32).contiguous()
+    popt_obs = (pt_opt[pidx] & obs_valid).to(dtype)                # [L,F]
+    ru_obs = kf_xy[..., 0]
+    rv_obs = kf_xy[..., 1]
+    ii = torch.arange(L, device=dev)
+
+    def compute_system(poses, points_pl):
+        """Residuals + Jacobian planes, all [., L, F]. points_pl: [3,P]."""
+        Xo = scatter.onehot_gather(points_pl.contiguous(), pidx_adj, use_kernel)  # [L,3,F]
+        R = lie.quat_to_matrix(lie.se3_q(poses))                   # [L,3,3]
+        t = lie.se3_t(poses)
+
+        def rot_row(i):
+            return (R[:, i, 0, None] * Xo[:, 0] + R[:, i, 1, None] * Xo[:, 1]
+                    + R[:, i, 2, None] * Xo[:, 2] + t[:, i, None])
+
+        x, y, z = rot_row(0), rot_row(1), rot_row(2)               # [L,F]
+        zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+        inv_z = 1.0 / zs
+        ru = ru_obs - (K[0] * x * inv_z + K[2])
+        rv = rv_obs - (K[1] * y * inv_z + K[3])
+
+        a00 = K[0] * inv_z
+        a02 = -K[0] * x * inv_z * inv_z
+        a11 = K[1] * inv_z
+        a12 = -K[1] * y * inv_z * inv_z
+        zero = torch.zeros_like(x)
+        Ju = torch.stack([-a00, zero, -a02, -a02 * y, -a00 * z + a02 * x, a00 * y])
+        Jv = torch.stack([zero, -a11, -a12, a11 * z - a12 * y, a12 * x, -a11 * x])
+
+        R0 = R[:, 0, :].T                                          # [3,L]
+        R1 = R[:, 1, :].T
+        R2 = R[:, 2, :].T
+        Pu = -(R0[:, :, None] * a00[None] + R2[:, :, None] * a02[None])  # [3,L,F]
+        Pv = -(R1[:, :, None] * a11[None] + R2[:, :, None] * a12[None])
+
+        chi2 = (ru * ru + rv * rv) * info
+        rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        w_base = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * (z > 0)
+        return ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base
+
+    def robust_cost(chi2, active):
+        # Huber rho on the whitened squared residual (g2o's robustChi2)
+        rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        rho = torch.where(rn <= HUBER_DELTA, chi2,
+                          2.0 * HUBER_DELTA * rn - HUBER_DELTA * HUBER_DELTA)
+        return torch.sum(rho * active)
+
+    poses, points_pl = kf_pose, pts.T
+    active = obs_valid.to(dtype)
+    best_poses, best_points = kf_pose, points_pl
+    best_cost = torch.full((), math.inf, dtype=dtype, device=dev)
+    lam = torch.full((), damping, dtype=dtype, device=dev)
+    stage_done = torch.zeros((), dtype=torch.bool, device=dev)
+
+    # +1 step so the last real step is itself cost-evaluated
+    for k in range(iters + stage2_iters + 1):
+        ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base = compute_system(poses, points_pl)
+        # LM acceptance, deferred by one step: a state worse than the best
+        # accepted one is reverted, lambda rises and the step is retried. A
+        # non-finite cost counts as worse: the reference's `cost > best`
+        # accepts a NaN state, and a single step through an indefinite f32
+        # Schur system (dropped stage-2 edges leave a point with one
+        # observation) then poisons the window with NaN poses
+        cost_cur = robust_cost(chi2, active)
+        reject = ~(cost_cur <= best_cost)
+        # stage boundary: past `iters` steps and on an accepted state, drop
+        # outlier edges by chi2 at the current estimate
+        stage2_mask = (obs_valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dtype)
+        do_stage = ~reject & (k >= iters) & ~stage_done
+        active = torch.where(do_stage, stage2_mask, active)
+        stage_done = stage_done | do_stage
+        cost_eff = torch.where(do_stage, robust_cost(chi2, active), cost_cur)
+        best_cost = torch.where(reject, best_cost, cost_eff)
+        best_poses = torch.where(reject, best_poses, poses)
+        best_points = torch.where(reject, best_points, points_pl)
+        lam = torch.clamp(torch.where(reject, lam * 4.0, lam * 0.5), 1e-7, 1e3)
+        w = w_base * active
+
+        # gate fixed cameras / constant points
+        Juc = Ju * free_cam[None, :, None]
+        Jvc = Jv * free_cam[None, :, None]
+        Puc = Pu * popt_obs[None]
+        Pvc = Pv * popt_obs[None]
+
+        Hcc = (torch.einsum("ilf,lf,jlf->lij", Juc, w, Juc)
+               + torch.einsum("ilf,lf,jlf->lij", Jvc, w, Jvc))
+        bc = torch.einsum("ilf,lf->li", Juc, w * ru) + torch.einsum("ilf,lf->li", Jvc, w * rv)
+
+        HppV = (Puc[:, None] * Puc[None, :] + Pvc[:, None] * Pvc[None, :]) * w[None, None]
+        bpV = Puc * (w * ru)[None] + Pvc * (w * rv)[None]          # [3,L,F]
+        WV = (Juc[:, None] * Puc[None, :] + Jvc[:, None] * Pvc[None, :]) * w[None, None]
+
+        # one adjoint scatter per step over the 30 stacked value planes
+        # (HppV 9 | bpV 3 | WV 18)
+        vals = torch.cat([HppV.reshape(9, L, F), bpV, WV.reshape(18, L, F)], 0)
+        fused = scatter.onehot_adjoint(vals.permute(1, 0, 2).contiguous(), pidx_adj, P,
+                                       use_kernel)                 # [L,30,P]
+        HppP = torch.sum(fused[:, :9], dim=0).reshape(3, 3, P)
+        bpP = torch.sum(fused[:, 9:12], dim=0)                    # [3,P]
+        W = fused[:, 12:].reshape(L, 6, 3, P)
+
+        # damp + closed-form invert point blocks
+        trp = HppP[0, 0] + HppP[1, 1] + HppP[2, 2]
+        lam_p = lam * (1.0 + trp / 3.0)
+        eyeP = eye3[:, :, None]
+        Hpp_d = HppP + lam_p[None, None] * eyeP
+        empty = trp < 1e-12
+        Hpp_d = torch.where(empty[None, None], eyeP, Hpp_d)
+        Hpi = torch.where(empty[None, None], 0.0, inv3x3_planes(Hpp_d))
+
+        # WHi[l,i,k,p] = sum_j W[l,i,j,p] Hpi[j,k,p]
+        WHi = torch.stack(
+            [W[:, :, 0] * Hpi[None, None, 0, kk] + W[:, :, 1] * Hpi[None, None, 1, kk]
+             + W[:, :, 2] * Hpi[None, None, 2, kk] for kk in range(3)], dim=2)
+        # S_off[l1,i,l2,k] = sum_{j,p} WHi[l1,i,j,p] W[l2,k,j,p]
+        WHi2 = WHi.reshape(L * 6, 3 * P)
+        S_off = (WHi2 @ W.reshape(L * 6, 3 * P).T).reshape(L, 6, L, 6)
+
+        S = -S_off
+        S[ii, :, ii, :] += Hcc
+        lam_c = lam * (1.0 + torch.einsum("lii->l", Hcc) / 6.0)
+        S[ii, :, ii, :] += lam_c[:, None, None] * eye6
+        # fixed cameras: identity rows keep S well-posed
+        fix2 = kf_fixed[:, None] | kf_fixed[None, :]
+        S = torch.where(fix2[:, None, :, None], 0.0, S)
+        S[ii, :, ii, :] += kf_fixed.to(dtype)[:, None, None] * eye6
+
+        # rhs[l,i] = -(bc - sum_{j,p} WHi[l,i,j,p] bpP[j,p])
+        rhs = -(bc - (WHi2 @ bpP.reshape(3 * P)).reshape(L, 6))
+        rhs = (rhs * free_cam[:, None]).reshape(-1)
+
+        Minv_d = _inv6x6_block(S[ii, :, ii, :])
+        dc = _block_jacobi_pcg(S.reshape(L * 6, L * 6), Minv_d, rhs, schur_iters).reshape(L, 6)
+        dc = torch.where(torch.isfinite(dc), dc, 0.0) * free_cam[:, None]
+
+        # back-substitution: dp = Hpp^-1 (-(bp + W^T dc)), all [3,P] planes
+        Wt_dc = (dc.reshape(1, L * 6) @ W.reshape(L * 6, 3 * P)).reshape(3, P)
+        rhs_p = -(bpP + Wt_dc)
+        dpP = torch.sum(Hpi * rhs_p[None], dim=1)
+        dpP = torch.where(torch.isfinite(dpP), dpP, 0.0) * pt_opt[None, :]
+
+        # on reject: revert to the best state and take no step
+        poses = torch.where(reject, best_poses, lie.se3_retract(poses, dc))
+        points_pl = torch.where(reject, best_points, points_pl + dpP)
+
+    # the result is the best ACCEPTED state (the last step's proposal is
+    # never evaluated), then a final residual pass classifies its edges
+    sys_fin = compute_system(best_poses, best_points)
+    z, chi2 = sys_fin[2], sys_fin[7]
+    inliers = obs_valid & (chi2 <= CHI2_MONO) & (z > 0)
+    total = torch.sum(torch.where(inliers, chi2, 0.0))
+    return best_poses, best_points.T, total, inliers

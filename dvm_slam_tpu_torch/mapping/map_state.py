@@ -1,14 +1,16 @@
 """MapState: the struct-of-arrays SLAM map.
 
-Port of the tracking slice of `dvm_slam_tpu/mapping/map_state.py`: same
-fields, dtypes and shapes, so maps cross between the packages field by
+Port of `dvm_slam_tpu/mapping/map_state.py` (`MapMeta`, `stack_maps` and
+the scatter variant of `point_observers` wait for the multi-agent slices):
+same fields, dtypes and shapes, so maps cross between the packages field by
 field (`convert.py`). Like the reference, every op returns a new
 `MapState`; a field it writes is cloned first, the others are shared.
 
 Scatters follow the reference's sentinel pattern: a write that must be
-dropped targets one extra slot past the end, which is sliced off, so the
-only duplicate indices land there (`index_put_` with real duplicates is
-nondeterministic on CUDA).
+dropped targets one extra slot past the end, which is sliced off. Where the
+reference's `.at[i].set(v)` can repeat a real index, XLA applies the updates
+in order and the last one wins; `index_put_` and `scatter_` leave the winner
+undefined on CUDA, so such writes go through `scatter_set_last`.
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ class MapState(NamedTuple):
     def pt_capacity(self):
         return self.pt_pos.shape[0]
 
+    @property
+    def feat_capacity(self):
+        return self.kf_xy.shape[1]
+
 
 def create(kf_cap: int, pt_cap: int, feat_cap: int, device=None,
            dtype=torch.float32) -> MapState:
@@ -98,16 +104,75 @@ def create(kf_cap: int, pt_cap: int, feat_cap: int, device=None,
 # derived structures
 # --------------------------------------------------------------------------
 
-def incidence(m: MapState):
-    """[K,P] bool observation incidence (KF k observes point p), built by a
-    scatter into a sentinel column P rather than the reference's [K,F,P]
-    compare (164 MB per 16-row tile at F=1250, P=8192)."""
-    K = m.kf_capacity
-    P = m.pt_capacity
-    obs = torch.where(m.kf_obs >= 0, m.kf_obs, P).to(torch.int64)
-    M = torch.zeros((K, P + 1), dtype=torch.bool, device=obs.device)
+def scatter_set_last(dst, idx, vals):
+    """`dst.at[idx].set(vals)` with XLA's order: where `idx` repeats, the
+    last update wins. dst [N,...], idx [U] in [0, N), vals [U,...]. The
+    winning update of each target is found with a deterministic
+    `scatter_reduce("amax")` over update positions; only the winners, whose
+    targets are then unique, are written."""
+    n, u = dst.shape[0], idx.shape[0]
+    idx = idx.to(torch.int64)
+    pos = torch.full((n,), -1, dtype=torch.int64, device=dst.device)
+    pos.scatter_reduce_(0, idx, torch.arange(u, device=dst.device), "amax")
+    hit = (pos >= 0).reshape((n,) + (1,) * (dst.dim() - 1))
+    return torch.where(hit, vals.to(dst.dtype)[pos.clamp(min=0)], dst)
+
+
+def _raw_incidence(kf_obs, P: int):
+    """[K,P] bool: row k holds point p at some feature, built by a scatter
+    into a sentinel column P rather than the reference's [K,F,P] compare
+    (164 MB per 16-row tile at F=1250, P=8192)."""
+    obs = torch.where(kf_obs >= 0, kf_obs, P).to(torch.int64)
+    M = torch.zeros((kf_obs.shape[0], P + 1), dtype=torch.bool, device=obs.device)
     M.scatter_(1, obs, True)
-    return M[:, :P] & m.kf_valid[:, None] & m.pt_valid[None, :]
+    return M[:, :P]
+
+
+def incidence(m: MapState):
+    """[K,P] bool observation incidence (KF k observes point p)."""
+    M = _raw_incidence(m.kf_obs, m.pt_capacity)
+    return M & m.kf_valid[:, None] & m.pt_valid[None, :]
+
+
+def covisibility(m: MapState):
+    """[K,K] int32 shared-observation counts, zero on the diagonal. The
+    {0,1} f32 product is exact (counts < 2^24; TF32 is off)."""
+    M = incidence(m).to(torch.float32)
+    W = (M @ M.T).to(torch.int32)
+    return W * (1 - torch.eye(W.shape[0], dtype=torch.int32, device=W.device))
+
+
+def point_observers(m: MapState):
+    """[P] int32 number of observing keyframes per point."""
+    return torch.sum(incidence(m), dim=0, dtype=torch.int32)
+
+
+def _first_occurrence(obs):
+    """[...,F] bool: True where obs[...,f] is the FIRST feature in its row
+    holding that value. After `fuse_duplicates` remaps observations, one
+    row can reference a point through several features; counting structures
+    count such a (KF, point) pair once."""
+    F = obs.shape[-1]
+    eq = (obs[..., None, :] == obs[..., :, None]).to(torch.uint8)   # [...,F,F]
+    return torch.argmax(eq, dim=-1) == torch.arange(F, device=obs.device)
+
+
+def covis_row(m: MapState, center):
+    """[K] int32 covisibility row of keyframe `center`: the number of
+    distinct valid points of `center` each other valid keyframe observes.
+    Bit-equal to the reference's `covis_row` (and to `covisibility(m)
+    [center]`), computed through the scatter-built incidence instead of the
+    reference's [K,F,F] tiled compare: the center's point set is a [P] flag,
+    and row k counts the distinct points it shares with it."""
+    P = m.pt_capacity
+    obs_c = m.kf_obs[center]
+    flag = torch.zeros((P + 1,), dtype=torch.bool, device=obs_c.device)
+    flag[torch.where(obs_c >= 0, obs_c, P).to(torch.int64)] = True
+    flag = flag[:P] & m.pt_valid
+    cov = torch.sum(_raw_incidence(m.kf_obs, P) & flag[None, :], dim=1, dtype=torch.int32)
+    K = m.kf_capacity
+    other = torch.arange(K, device=cov.device) != center
+    return torch.where(m.kf_valid & other, cov, 0)
 
 
 # --------------------------------------------------------------------------
@@ -178,6 +243,41 @@ def add_points(m: MapState, pos, desc, normal, min_dist, max_dist, ref_kf, valid
     return m, torch.where(w, slot, -1)
 
 
+def check_invariants(m: MapState) -> list:
+    """Runtime consistency checks (`Map::CheckEssentialGraph` role): a list
+    of violation strings, empty when the map is healthy. Host-side, numpy."""
+    errs = []
+    n_kf, n_pt = int(m.n_kf), int(m.n_pt)
+    kf_valid = m.kf_valid.cpu().numpy()
+    pt_valid = m.pt_valid.cpu().numpy()
+    obs = m.kf_obs.cpu().numpy()
+    if kf_valid[n_kf:].any():
+        errs.append("kf_valid set beyond n_kf")
+    if pt_valid[n_pt:].any():
+        errs.append("pt_valid set beyond n_pt")
+    live = obs[kf_valid]
+    live = live[live >= 0]
+    if live.size and live.max() >= m.pt_capacity:
+        errs.append("kf_obs points past pt capacity")
+    if live.size:
+        dead = ~pt_valid[live]
+        if dead.any():
+            errs.append(f"{int(dead.sum())} observations reference invalid points")
+    ref = m.pt_ref_kf.cpu().numpy()[pt_valid]
+    if ref.size and (ref >= 0).any():
+        kc = m.kf_capacity
+        bad = ref[(ref >= 0) & ((ref >= kc) | ~kf_valid[np.clip(ref, 0, kc - 1)])]
+        if bad.size:
+            errs.append(f"{bad.size} points reference invalid ref keyframes")
+    pos = m.pt_pos.cpu().numpy()[pt_valid]
+    if pos.size and not np.isfinite(pos).all():
+        errs.append("non-finite point positions")
+    poses = m.kf_pose.cpu().numpy()[kf_valid]
+    if poses.size and not np.isfinite(poses).all():
+        errs.append("non-finite keyframe poses")
+    return errs
+
+
 def predict_scale(dist, max_dist, n_levels: int, scale_factor: float):
     """`MapPoint::PredictScale`: level = ceil(log(max_dist/dist)/log(sf))."""
     ratio = torch.clamp(max_dist, min=1e-9) / torch.clamp(dist, min=1e-9)
@@ -229,12 +329,14 @@ def update_point_stats(m: MapState, n_levels: int, scale_factor: float,
     if not with_desc:
         return out
 
-    # feature index per (k, p): scatter f to [k, obs[k,f]]; dropped slots
-    # (obs < 0) all land in the sentinel column P
+    # feature index per (k, p): the reference's in-order `.at[k, obs].set(f)`
+    # keeps the LAST feature of a row that holds p twice (after fusion), and
+    # f rises along the row, so that is the largest f: a deterministic amax.
+    # Dropped slots (obs < 0) all land in the sentinel column P.
     obs = torch.where(m.kf_obs >= 0, m.kf_obs, P).to(torch.int64)
     feats = torch.arange(F, dtype=torch.int32, device=dev).expand(K, F)
     feat_of = torch.zeros((K, P + 1), dtype=torch.int32, device=dev)
-    feat_of.scatter_(1, obs, feats)
+    feat_of.scatter_reduce_(1, obs, feats, "amax")
     feat_of = feat_of[:, :P].clamp(0, F - 1).to(torch.int64)
     dsel = m.kf_desc[torch.arange(K, device=dev)[:, None], feat_of]   # [K,P,256]
     votes = torch.where(M[:, :, None], dsel, 0).sum(0, dtype=torch.int32)  # [P,256]

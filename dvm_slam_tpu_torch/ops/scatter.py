@@ -1,0 +1,71 @@
+"""Bundle adjustment's adjoint scatter and point gather, with dispatch.
+
+Counterpart of `dvm_slam_tpu/ops/pallas_scatter.py`. Two functions of the
+observation -> point incidence `pidx [L,F]` (negative = no observation):
+
+* `onehot_adjoint`: `out[l,g,p] = sum_f vals[l,g,f] * (pidx[l,f] == p)`,
+  the assembly of BA's point blocks (H_pp, b_p, W) from per-observation
+  value planes; duplicates accumulate, `pidx < 0` or `>= P` adds nothing.
+* `onehot_gather`: `out[l,g,f] = pts_pl[g, pidx[l,f]]`, 0 where `pidx` is
+  outside `[0, P)` (the Pallas kernel's meaning; the reference's CPU row
+  gather clamps `>= P`, which no call site produces).
+
+The plain versions here are the reference's XLA forms: the dense one-hot
+product of `onehot_adjoint_xla` as one f32 `torch.bmm` (deterministic on
+both devices, unlike `index_add_`, which uses float atomics on CUDA) and the
+masked row gather. The hand-written Hopper kernels K2 and K3 are in
+`ops/scatter_kernel.py` + `csrc/onehot_scatter.cu`.
+
+Dispatch (`use_kernel`, as `FrontendConfig.use_kernel`): None takes the
+kernel for CUDA tensors and the plain version for CPU tensors; False always
+the plain version; True always the kernel, and raises for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import scatter_kernel
+
+
+def onehot_adjoint_plain(vals, pidx, n_cols: int):
+    """[L,G,F] f32 x [L,F] int -> [L,G,n_cols] f32, through the dense [L,F,P]
+    one-hot (168 MB at L=20, F=512, P=4096)."""
+    cols = torch.arange(n_cols, dtype=pidx.dtype, device=pidx.device)
+    oh = (pidx[..., None] == cols).to(vals.dtype)                 # [L,F,P]
+    return torch.bmm(vals, oh)
+
+
+def onehot_gather_plain(pts_pl, pidx):
+    """[G,P] f32 plane-major table, [L,F] int -> [L,G,F] f32."""
+    P = pts_pl.shape[1]
+    ok = (pidx >= 0) & (pidx < P)
+    g = pts_pl[:, torch.where(ok, pidx, 0).to(torch.int64)]      # [G,L,F]
+    return torch.where(ok[:, None, :], g.permute(1, 0, 2), 0.0)
+
+
+def _use_kernel(t, use_kernel) -> bool:
+    if use_kernel is False:
+        return False
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no BA scatter path for device {t.device}")
+    if use_kernel:
+        raise ValueError(f"use_kernel=True needs CUDA tensors, got {t.device}")
+    return False
+
+
+def onehot_adjoint(vals, pidx, n_cols: int, use_kernel=None):
+    """K2 for CUDA tensors, the plain version for CPU tensors (see module
+    docstring for `use_kernel`)."""
+    if _use_kernel(vals, use_kernel):
+        return scatter_kernel.onehot_adjoint(vals, pidx, n_cols)
+    return onehot_adjoint_plain(vals, pidx, n_cols)
+
+
+def onehot_gather(pts_pl, pidx, use_kernel=None):
+    """K3 for CUDA tensors, the plain version for CPU tensors."""
+    if _use_kernel(pts_pl, use_kernel):
+        return scatter_kernel.onehot_gather(pts_pl, pidx)
+    return onehot_gather_plain(pts_pl, pidx)

@@ -1,14 +1,16 @@
 """Per-frame monocular tracking: project the map, two Hamming searches by
-projection, pose-only Gauss-Newton after each.
+projection, pose-only Gauss-Newton after each; then the keyframe decision
+and, for a new keyframe, the mapper chain with windowed BA.
 
 Port of the device step of `dvm_slam_tpu/tracking/tracker.py`
 (`project_points`, `track_frame`, `make_and_track`, `update_visibility`,
-`create_points_from_depth`), plus two helpers taken from the reference's host
-code: `bootstrap_from_depth` (the map seeding of
-`MonocularTracker._try_initialize_depth`) and `motion_model_step` (the pose
-chain of `autonomous_step`). The `MonocularTracker` state machine, the
-keyframe decision and monocular two-view initialization wait for later
-slices.
+`create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`),
+plus two helpers taken from the reference's host code: `bootstrap_from_depth`
+(the map seeding of `MonocularTracker._try_initialize_depth`) and
+`motion_model_step` (the pose chain of `autonomous_step`). The
+`MonocularTracker` state machine and monocular two-view initialization wait
+for a later slice; the packed outcome rows of the reference
+(`autonomous_step_packed`) are a TPU transfer workaround and are not ported.
 
 As in the reference, both stages project against the full point table;
 frustum, distance-range and viewing-angle gates (`Frame::isInFrustum`) cut
@@ -25,7 +27,7 @@ import torch
 
 from ..frontend.extractor import Frame, FrontendConfig, make_frame
 from ..geometry import cameras, lie
-from ..mapping import map_state
+from ..mapping import local_mapping, map_state
 from ..ops import matching
 from . import pose_opt
 
@@ -33,8 +35,8 @@ from . import pose_opt
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
     """The reference's tracker settings, field for field (so configs cross
-    between the packages); the slice reads `frontend`, `kf_cap`, `pt_cap`,
-    `min_track_inliers`, `camera_model` and `baseline`."""
+    between the packages); `frontend.use_kernel` also picks the BA kernels
+    (K2, K3) of the mapper chain that `autonomous_step` runs."""
 
     frontend: FrontendConfig
     kf_cap: int = 512
@@ -49,6 +51,14 @@ class TrackerConfig:
     baseline: float = 0.0
     th_depth_ratio: float = 40.0
     min_init_stereo_points: int = 200
+
+    @property
+    def max_frames_between_kf(self):
+        return int(self.fps)
+
+    @property
+    def depth_sensor(self):
+        return self.sensor in ("stereo", "rgbd")
 
 
 class TrackResult(NamedTuple):
@@ -214,6 +224,89 @@ def motion_model_step(T_last, res: TrackResult, config: TrackerConfig):
     vel = torch.where(good, lie.se3_mul(res.T_cw, lie.se3_inv(T_last)),
                       lie.se3_identity(device=T_last.device))
     return T2, vel
+
+
+class AutoState(NamedTuple):
+    """Tracker continuation for `autonomous_step`, all device tensors."""
+
+    T_cw: torch.Tensor            # [7] last pose
+    velocity: torch.Tensor        # [7] motion model
+    frames_since_kf: torch.Tensor  # [] int32
+    ref_tracked: torch.Tensor     # [] int32 inliers at the last keyframe
+    kf_count: torch.Tensor        # [] int32 keyframes created
+
+
+class AutoFlags(NamedTuple):
+    """Per-frame outcome flags."""
+
+    n_inliers: torch.Tensor  # [] int32
+    made_kf: torch.Tensor    # [] bool
+    good: torch.Tensor       # [] bool
+
+
+def autonomous_step(img, m: map_state.MapState, st: AutoState, K, dist,
+                    config: TrackerConfig, mapper_cfg: tuple):
+    """One SLAM frame: extract + track + visibility + keyframe decision +
+    (for a new keyframe) keyframe insertion and the whole mapper chain.
+
+    mapper_cfg: (n_neighbors, n_levels, scale_factor, ba_local, ba_fixed,
+    ba_pts, ba_iters, run_ba_every), as in the reference. Returns (map,
+    state, AutoFlags)."""
+    if config.camera_model != "pinhole":
+        raise NotImplementedError(f"camera model {config.camera_model!r} is not ported")
+    if config.depth_sensor:
+        raise NotImplementedError("stereo / RGB-D keyframes need stereo BA rows, not ported")
+    (n_neighbors, n_levels, scale_factor,
+     ba_local, ba_fixed, ba_pts, ba_iters, run_ba_every) = mapper_cfg
+    frame = make_frame(img, K, dist, config.frontend)
+    res = track_frame(m, frame, lie.se3_mul(st.velocity, st.T_cw), K, config)
+    good = res.n_inliers >= config.min_track_inliers
+    T2, vel2 = motion_model_step(st.T_cw, res, config)
+    m = m._replace(
+        pt_visible=m.pt_visible + (res.visible & good).to(torch.int32),
+        pt_found=m.pt_found + (res.found & good).to(torch.int32),
+    )
+    fsk = torch.where(good, st.frames_since_kf + 1, st.frames_since_kf)
+
+    # the keyframe decision, in f32 as the reference computes it
+    thr = torch.clamp(config.kf_ref_ratio * st.ref_tracked.to(torch.float32), min=1.0)
+    need_kf = (
+        good
+        & ((fsk >= config.max_frames_between_kf) | (res.n_inliers < thr.to(torch.int32)))
+        & (res.n_inliers > config.kf_min_inliers)
+        & (m.n_kf < config.kf_cap - 1)
+    )
+    # the reference's lax.cond is a Python `if`: one host sync per frame
+    if bool(need_kf):
+        m, slot = map_state.add_keyframe(m, res.T_cw, frame.xy, frame.level, frame.angle,
+                                         frame.desc, frame.valid, res.obs)
+        run_ba = run_ba_every == 1 or (int(st.kf_count) + 1) % run_ba_every == 0
+        m = local_mapping._mapper_chain(
+            m, slot, K, n_neighbors=n_neighbors, n_levels=n_levels,
+            scale_factor=scale_factor, run_ba_traced=run_ba, ba_local=ba_local,
+            ba_fixed=ba_fixed, ba_pts=ba_pts, ba_iters=ba_iters,
+            use_kernel=config.frontend.use_kernel)
+    st2 = AutoState(
+        T_cw=T2, velocity=vel2,
+        frames_since_kf=torch.where(need_kf, 0, fsk).to(torch.int32),
+        ref_tracked=torch.where(need_kf, res.n_inliers, st.ref_tracked).to(torch.int32),
+        kf_count=st.kf_count + need_kf.to(torch.int32),
+    )
+    return m, st2, AutoFlags(n_inliers=res.n_inliers, made_kf=need_kf, good=good)
+
+
+def autonomous_step_batch(imgs, m: map_state.MapState, st: AutoState, K, dist,
+                          config: TrackerConfig, mapper_cfg: tuple):
+    """`autonomous_step` over the frames `imgs` [B,H,W] in turn (the
+    reference's `lax.scan`). Returns (map, state, outcomes [B,10] f32: pose 7
+    | made_kf | good | n_inliers), the reference's layout."""
+    rows = []
+    for img in imgs:
+        m, st, fl = autonomous_step(img, m, st, K, dist, config, mapper_cfg)
+        rows.append(torch.cat([st.T_cw, torch.stack([fl.made_kf.to(torch.float32),
+                                                     fl.good.to(torch.float32),
+                                                     fl.n_inliers.to(torch.float32)])]))
+    return m, st, torch.stack(rows)
 
 
 def update_visibility(m: map_state.MapState, visible, found):

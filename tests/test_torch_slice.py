@@ -1,13 +1,15 @@
 """Slice parity: the port's per-frame step (`make_frame` + `track_frame`)
-against the JAX package, on `__graft_entry__`'s flagship setup and on a rendered
-synthetic sequence, plus the port's import and dispatch contracts.
+and its full autonomous step (keyframe decision, mapper chain, local BA)
+against the JAX package, on `__graft_entry__`'s flagship setup and on a
+rendered synthetic sequence, plus the port's import and dispatch contracts.
 
-Run as a script, this file performs the JAX package's CPU reference run at
+Run as a script, this file performs the JAX package's CPU reference runs at
 EuRoC geometry (480x752, 1250 features, 8 levels, pt_cap 8192; the frames
-`chip_smoke.py` tracks on the card) and prints its per-frame inliers and
-translation errors as JSON:
+`chip_smoke.py` runs on the card) and prints per-frame inliers and
+translation errors as JSON: tracking only on frames 0..29, or with
+`--slice2` the autonomous step with the mapper chain on frames 0..59:
 
-    JAX_PLATFORMS=cpu python tests/test_torch_slice.py
+    JAX_PLATFORMS=cpu python tests/test_torch_slice.py [--slice2]
 """
 
 import dataclasses
@@ -39,6 +41,9 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EUROC_K = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+# autonomous_step's mapper_cfg: (n_neighbors, n_levels, scale_factor,
+# ba_local, ba_fixed, ba_pts, ba_iters, run_ba_every)
+MAPPER_FULL = (5, 8, 1.2, 12, 8, 4096, 6, 1)   # bench.py's LocalMapper
 
 
 def _scene(h, w, tex_size, n_frames):
@@ -54,25 +59,36 @@ def _scene(h, w, tex_size, n_frames):
     return K, poses, imgs, depth0
 
 
+def _np_dict(nt):
+    return {k: None if v is None else np.asarray(v) for k, v in nt._asdict().items()}
+
+
 def _center_err(T_cw, T_gt):
     c = np.asarray(jlie.se3_t(jlie.se3_inv(jnp.asarray(T_cw))))
     g = np.asarray(jlie.se3_t(jlie.se3_inv(jnp.asarray(T_gt))))
     return float(np.linalg.norm(c - g))
 
 
-def jax_run(cfg, K, poses, imgs, depth0):
-    """Depth bootstrap from frame 0, then motion-model tracking of frames
-    1.. with `make_and_track`. Returns (n_created, [(n_inliers, T_cw,
-    translation error)])."""
+def _jax_bootstrap(cfg, K, img0, depth0):
+    """The JAX package's map seeding from frame 0's depth: keyframe 0 at
+    identity plus one point per keypoint with depth. Returns (map, n)."""
     fc = cfg.frontend
     Kj, dist = jnp.asarray(K), jnp.zeros(4)
-    f0 = jex.make_frame_rgbd(jnp.asarray(imgs[0]), jnp.asarray(depth0), Kj, dist, fc,
+    f0 = jex.make_frame_rgbd(jnp.asarray(img0), jnp.asarray(depth0), Kj, dist, fc,
                              jnp.float32(K[0] * cfg.baseline))
     m = jms.create(cfg.kf_cap, cfg.pt_cap, fc.capacity)
     m, _ = jms.add_keyframe(m, jlie.se3_identity(), f0.xy, f0.level, f0.angle, f0.desc,
                             f0.valid, jnp.full((fc.capacity,), -1, jnp.int32), ur=f0.ur)
-    m, n = jtrk.create_points_from_depth(m, jnp.int32(0), f0, Kj, jnp.float32(1e9),
+    return jtrk.create_points_from_depth(m, jnp.int32(0), f0, Kj, jnp.float32(1e9),
                                          fc.n_levels, fc.scale_factor)
+
+
+def jax_run(cfg, K, poses, imgs, depth0):
+    """Depth bootstrap from frame 0, then motion-model tracking of frames
+    1.. with `make_and_track`. Returns (n_created, [(n_inliers, T_cw,
+    translation error)])."""
+    Kj, dist = jnp.asarray(K), jnp.zeros(4)
+    m, n = _jax_bootstrap(cfg, K, imgs[0], depth0)
     T, vel, out = jlie.se3_identity(), jlie.se3_identity(), []
     for img, gt in zip(imgs[1:], poses[1:]):
         _, res, pv, pf = jtrk.make_and_track(jnp.asarray(img), m, jlie.se3_mul(vel, T),
@@ -83,6 +99,24 @@ def jax_run(cfg, K, poses, imgs, depth0):
         T = jnp.where(good, res.T_cw, T)
         out.append((int(res.n_inliers), np.asarray(T), _center_err(T, gt)))
     return int(n), out
+
+
+def jax_auto_run(cfg, mapper_cfg, K, poses, imgs, depth0):
+    """Depth bootstrap from frame 0, then the JAX package's
+    `autonomous_step` (track, keyframe decision, mapper chain with local BA)
+    on frames 1.. Returns (n_created, [(n_inliers, made_kf, T_cw,
+    translation error, valid points)], final map)."""
+    Kj, dist = jnp.asarray(K), jnp.zeros(4)
+    m, n = _jax_bootstrap(cfg, K, imgs[0], depth0)
+    st = jtrk.AutoState(T_cw=jlie.se3_identity(), velocity=jlie.se3_identity(),
+                        frames_since_kf=jnp.int32(0), ref_tracked=jnp.int32(n),
+                        kf_count=jnp.int32(0))
+    out = []
+    for img, gt in zip(imgs[1:], poses[1:]):
+        m, st, fl = jtrk.autonomous_step(jnp.asarray(img), m, st, Kj, dist, cfg, mapper_cfg)
+        out.append((int(fl.n_inliers), bool(fl.made_kf), np.asarray(st.T_cw),
+                    _center_err(st.T_cw, gt), int(np.asarray(m.pt_valid).sum())))
+    return int(n), out, m
 
 
 def port_run(tcfg, K, imgs, depth0, device="cpu"):
@@ -102,6 +136,91 @@ def port_run(tcfg, K, imgs, depth0, device="cpu"):
         T, vel = ttrk.motion_model_step(T, res, tcfg)
         out.append((int(res.n_inliers), T.cpu().numpy()))
     return int(n), out
+
+
+def port_auto_run(tcfg, mapper_cfg, K, imgs, depth0, device="cpu"):
+    """The same run as `jax_auto_run` through the port."""
+    Kt = torch.from_numpy(K).to(device)
+    dist = torch.zeros(4, device=device)
+    f0 = tex.make_frame_rgbd(torch.from_numpy(imgs[0]).to(device),
+                             torch.from_numpy(depth0).to(device), Kt, dist,
+                             tcfg.frontend, float(K[0]) * tcfg.baseline)
+    m = tms.create(tcfg.kf_cap, tcfg.pt_cap, tcfg.frontend.capacity, device=device)
+    m, n = ttrk.bootstrap_from_depth(m, f0, Kt, tcfg)
+    i32 = dict(dtype=torch.int32, device=device)
+    st = ttrk.AutoState(T_cw=tlie.se3_identity(device=device),
+                        velocity=tlie.se3_identity(device=device),
+                        frames_since_kf=torch.zeros((), **i32), ref_tracked=n.to(torch.int32),
+                        kf_count=torch.zeros((), **i32))
+    out = []
+    for img in imgs[1:]:
+        m, st, fl = ttrk.autonomous_step(torch.from_numpy(img).to(device), m, st, Kt, dist, tcfg,
+                                         mapper_cfg)
+        out.append((int(fl.n_inliers), bool(fl.made_kf), st.T_cw.cpu().numpy()))
+    return int(n), out, m
+
+
+class TestAutonomousRun:
+    def test_ten_frames_match_jax(self):
+        """`autonomous_step` with the mapper chain and local BA on 10 tracked
+        frames at 120x160 (300 features, 4 levels, kf_cap 16, pt_cap 1024,
+        mapper (3 neighbors, ba_local 4, ba_fixed 2, ba_pts 256, ba_iters 3)).
+
+        Free run: identical made_kf flags and n_kf, inliers within 1. Step by
+        step, each port step starting from the JAX package's map and state
+        (`convert`): identical flags and kf_obs, inliers within 1, the pose
+        and the keyframe poses to 1e-3, points to 5e-3 (1 + |X|). At this
+        size the scene pins the pose weakly (0.03-0.5 m error in both
+        packages), so a free run lets f32 differences of the BA compound;
+        the step-by-step check bounds what one step adds."""
+        K, poses, imgs, depth0 = _scene(120, 160, 512, 11)
+        fc = jex.FrontendConfig(height=120, width=160, n_features=300, n_levels=4)
+        cfg = jtrk.TrackerConfig(frontend=fc, kf_cap=16, pt_cap=1024, fps=20.0)
+        tcfg = convert.tracker_config_from_dict(dataclasses.asdict(cfg))
+        mapper_cfg = (3, 4, 1.2, 4, 2, 256, 3, 1)
+        Kj, Kt = jnp.asarray(K), torch.from_numpy(K)
+        m, n = _jax_bootstrap(cfg, K, imgs[0], depth0)
+        st = jtrk.AutoState(T_cw=jlie.se3_identity(), velocity=jlie.se3_identity(),
+                            frames_since_kf=jnp.int32(0), ref_tracked=jnp.int32(n),
+                            kf_count=jnp.int32(0))
+        flags_j, inl_j = [], []
+        for img in imgs[1:]:
+            mt = convert.map_state_from_numpy(_np_dict(m))
+            stt = convert.auto_state_from_numpy(_np_dict(st))
+            mt, stt, flt = ttrk.autonomous_step(torch.from_numpy(img), mt, stt, Kt,
+                                                torch.zeros(4), tcfg, mapper_cfg)
+            m, st, fl = jtrk.autonomous_step(jnp.asarray(img), m, st, Kj, jnp.zeros(4), cfg,
+                                             mapper_cfg)
+            flags_j.append(bool(fl.made_kf))
+            inl_j.append(int(fl.n_inliers))
+            assert bool(flt.made_kf) == flags_j[-1]
+            assert abs(int(flt.n_inliers) - inl_j[-1]) <= 1
+            np.testing.assert_allclose(stt.T_cw.numpy(), np.asarray(st.T_cw), atol=1e-3)
+            np.testing.assert_array_equal(mt.kf_obs.numpy(), np.asarray(m.kf_obs))
+            np.testing.assert_allclose(mt.kf_pose.numpy(), np.asarray(m.kf_pose), atol=1e-3)
+            X = np.asarray(m.pt_pos)
+            err = np.abs(mt.pt_pos.numpy() - X).max(1) / (1.0 + np.linalg.norm(X, axis=1))
+            assert err.max() <= 5e-3
+        assert sum(flags_j) >= 2   # the chain really ran
+
+        n_t, out_t, m_t = port_auto_run(tcfg, mapper_cfg, K, imgs, depth0)
+        assert n_t == int(n)
+        assert [o[1] for o in out_t] == flags_j
+        assert int(m_t.n_kf) == int(m.n_kf)
+        assert all(abs(o[0] - i) <= 1 for o, i in zip(out_t, inl_j))
+
+        # the batch entry is the same steps in a loop: identical outcome rows
+        m0, n0 = ttrk.bootstrap_from_depth(
+            tms.create(16, 1024, tcfg.frontend.capacity),
+            tex.make_frame_rgbd(torch.from_numpy(imgs[0]), torch.from_numpy(depth0), Kt,
+                                torch.zeros(4), tcfg.frontend, 0.0), Kt, tcfg)
+        zero = torch.zeros((), dtype=torch.int32)
+        st0 = ttrk.AutoState(tlie.se3_identity(), tlie.se3_identity(), zero,
+                             n0.to(torch.int32), zero)
+        m_b, _, rows = ttrk.autonomous_step_batch(torch.from_numpy(np.stack(imgs[1:4])), m0,
+                                                  st0, Kt, torch.zeros(4), tcfg, mapper_cfg)
+        want = np.array([np.r_[T, kf, True, inl] for inl, kf, T in out_t[:3]], np.float32)
+        np.testing.assert_array_equal(rows.numpy(), want)
 
 
 class TestSyntheticRun:
@@ -170,7 +289,10 @@ class TestPortContracts:
     def test_import_leaves_jax_out(self):
         code = ("import sys; import dvm_slam_tpu_torch.tracking.tracker, "
                 "dvm_slam_tpu_torch.io.synthetic, dvm_slam_tpu_torch.convert, "
-                "dvm_slam_tpu_torch.ops.orb_kernel; "
+                "dvm_slam_tpu_torch.ops.orb_kernel, dvm_slam_tpu_torch.ops.scatter, "
+                "dvm_slam_tpu_torch.ops.scatter_kernel, dvm_slam_tpu_torch.mapping.ba, "
+                "dvm_slam_tpu_torch.mapping.local_mapping, "
+                "dvm_slam_tpu_torch.geometry.triangulation; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu']; "
                 "print(bad); sys.exit(1 if bad else 0)")
@@ -213,8 +335,34 @@ def _reference_main():
     }))
 
 
+def _reference_slice2_main():
+    """The JAX package's CPU reference of the smoke's slice-2 run: depth
+    bootstrap, then `autonomous_step` with the mapper chain on frames 1..59
+    at EuRoC geometry, `LocalMapper(5, ba_local=12, ba_fixed=8, ba_pts=4096,
+    ba_iters=6)`."""
+    n_frames = 60
+    K, poses, imgs, depth0 = _scene(480, 752, 2048, n_frames)
+    fc = jex.FrontendConfig(height=480, width=752, n_features=1250)
+    cfg = jtrk.TrackerConfig(frontend=fc, kf_cap=128, pt_cap=8192, fps=20.0)
+    n, out, m = jax_auto_run(cfg, MAPPER_FULL, K, poses, imgs, depth0)
+    print(json.dumps({
+        "n_created": n,
+        "n_inliers": [o[0] for o in out],
+        "made_kf": [int(o[1]) for o in out],
+        "trans_err_m": [round(o[3], 6) for o in out],
+        "max_trans_err_m": round(max(o[3] for o in out), 6),
+        "valid_points": [o[4] for o in out],
+        "n_kf": int(m.n_kf),
+        "n_valid_points": int(np.asarray(m.pt_valid).sum()),
+        "invariants": jms.check_invariants(m),
+    }))
+
+
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    _reference_main()
+    if "--slice2" in sys.argv:
+        _reference_slice2_main()
+    else:
+        _reference_main()
