@@ -2,12 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (`dvm_slam_tpu_torch`) on one NVIDIA
 card.
 
-Drives the port's main path at EuRoC geometry (480x752, 1250 features, 8
+Drives the port's main paths at EuRoC geometry (480x752, 1250 features, 8
 levels, kf_cap 128, pt_cap 8192) on a rendered synthetic sequence: slice 1,
-ORB extraction plus two-stage map tracking (`make_and_track`), and slice 2,
+ORB extraction plus two-stage map tracking (`make_and_track`), slice 2,
 the full SLAM step `autonomous_step` (track, keyframe decision, and for a new
 keyframe the mapper chain: cull, triangulate, fuse, point stats, windowed BA
-with `LocalMapper(5, ba_local=12, ba_fixed=8, ba_pts=4096, ba_iters=6)`).
+with `LocalMapper(5, ba_local=12, ba_fixed=8, ba_pts=4096, ba_iters=6)`),
+and slice 3, the `System` facade from the first frame (monocular two-view
+initialization, the tracker's state machine, the saved trajectory).
 Three hand-written kernels: K1 (fused ORB orientation + steered BRIEF,
 `csrc/orb_describe.cu`), K2 (BA adjoint scatter) and K3 (BA point gather,
 both `csrc/onehot_scatter.cu`). Phases, in order; any failure raises and the
@@ -39,7 +41,26 @@ run exits non-zero:
 11. timing after the warm-up of phases 9-10: `autonomous_step` ms per frame
     with and without a keyframe (four passes, kernels and plain in turns),
     `local_ba` ms per call on the final map, K2/K3 against their plain
-    versions.
+    versions;
+12. slice 3 through the kernels, the port's normal entry point: every frame
+    of the slice-2 scene from frame 0 through `System.track_monocular` at
+    `configs/euroc.yaml`'s settings without lens distortion (resized to
+    600x350, kf_capacity 512, pt_capacity 16384, autonomous lane with
+    auto_batch 4 and async_depth 8, the default `LocalMapper()`): monocular
+    two-view init, then tracking, keyframes and windowed BA; the trajectory
+    saved as TUM into `build/`, read back and aligned to ground truth. Held to
+    the JAX CPU reference of the same run: init at the same frame pair (+-1),
+    the same two-view model, initial good points within 5%, final state OK,
+    frames with a pose at least the reference's minus 2, keyframes within 2,
+    the host keyframe mirror equal to the map, ATE under 3x the reference's;
+    K2/K3 launched once per LM step of every BA, K1 8x per frame;
+13. slice 3 with `use_kernel=False`: the same draws (the tracker's CPU
+    generator), so the same init frames, initial keyframe poses to 1e-4,
+    identical keyframe frames and trajectory rows, poses to 1e-3;
+14. timing: `track_monocular` ms per call by kind (before init, the init
+    call, buffered, dispatched with and without a keyframe), four passes,
+    kernels and plain in turns; K2/K3 against their plain versions at
+    System's BA window (L = 32).
 
 Run from the root of a checkout: `python3 chip_smoke.py`. The last line is
 `{"ok": true, "device": {...}}`; the line before it the card's name and power
@@ -49,6 +70,7 @@ limit, and before that one JSON line describing the kernels.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -67,6 +89,7 @@ N_FRAMES2 = 60  # slice 2: frame 0 bootstraps the map, frames 1..59 run the full
 MAPPER = (5, N_LEVELS, 1.2, 12, 8, 4096, 6, 1)
 BA_STEPS = MAPPER[6] + 5 + 1   # LM steps per BA: iters + stage-2 iters + 1
 BA_SHAPES = dict(L=MAPPER[3] + MAPPER[4], G=30, F=512, P=MAPPER[5])
+L_SYSTEM = 32   # BA window rows of System's default LocalMapper(ba_local=16, ba_fixed=16)
 
 # The JAX package's CPU reference run of these frames (same world, geometry
 # and bootstrap; `python tests/test_torch_slice.py`): per-frame inliers and
@@ -102,6 +125,39 @@ ERR_BOUND2_M = 3.0 * JAX_REF2_MAX_ERR_M
 # flags part (f32 BA on the card and on the CPU part by ~5e-3 in one step from
 # the same state), the maps grow from different keyframes.
 VALID_RTOL, VALID_RTOL_END = 0.05, 0.10
+
+# Slice 3: `configs/euroc.yaml` as a dict (the card's Python has no YAML
+# parser), with no lens distortion: the renderer draws none.
+EUROC_SETTINGS = {
+    "camera": {"model": "pinhole", "fx": 458.654, "fy": 457.296, "cx": 367.215,
+               "cy": 248.375, "dist": (0.0, 0.0, 0.0, 0.0), "width": 752, "height": 480,
+               "new_width": 600, "new_height": 350, "fps": 20.0, "rgb": True},
+    "orb": {"n_features": 1250, "scale_factor": 1.2, "n_levels": 8, "ini_th_fast": 20.0,
+            "min_th_fast": 7.0},
+    "kf_capacity": 512, "pt_capacity": 16384,
+}
+FPS3 = 20.0                # frame i is stamped i / FPS3
+INIT_BA_ITERS = 16         # `LocalMapper.on_initial_map`'s BA
+# The JAX package's CPU reference of slice 3 (`python tests/test_torch_slice.py
+# --slice3`): every frame through `System.track_monocular` from frame 0 as
+# agent 0. The frame pair of the two-view init, its model, its good points,
+# the frames with a pose in the saved trajectory, the frames that made
+# keyframes (the two of the init included) and the Sim3-aligned ATE in
+# meters. Then the init alone under the draws of agents 0-5: (frame pair,
+# homography, good points). On this mostly planar scene the eight-point
+# system is near-degenerate and SH/(SH+SF) sits at 0.44-0.50, so which call
+# succeeds, and with which model, depends on the draws and on the f32 solver
+# (ROADMAP fault o); the card's init is held to this spread.
+JAX_REF3_INIT_PAIR = (0, 1)
+JAX_REF3_USED_H = False
+JAX_REF3_INIT_GOOD = 633
+JAX_REF3_N_TRACKED = 59
+JAX_REF3_KF_FRAMES = [0, 1, 2, 7, 11, 17, 30, 50, 54]
+JAX_REF3_ATE_M = 0.006159775424748659
+JAX_REF3_INIT_BY_SEED = [((0, 1), False, 633), ((6, 8), False, 622), ((6, 7), False, 631),
+                         ((0, 2), False, 574), ((0, 2), False, 574), ((0, 4), False, 504)]
+INIT_GOOD_RTOL = 0.05
+ATE_BOUND3_M = 3.0 * JAX_REF3_ATE_M
 
 ANGLE_ATOL = 1e-4          # bench.py's bound for the TPU kernel against XLA
 MAX_BIT_FRACTION = 1e-3
@@ -226,12 +282,85 @@ def run_slice2(imgs, depth0, cfg, device, timed: bool = False):
     return m, int(n_created), out
 
 
-def ba_inputs(device):
-    """K2/K3 inputs at BA's shapes from numpy seed 0: indices in [-1, P)
-    with repeats, one row all -1."""
+def run_slice3(imgs, device, use_kernel, timed: bool = False):
+    """Every frame through the port's `System.track_monocular(img, i / FPS3)`
+    at the EuRoC settings, from frame 0: two-view init, then the autonomous
+    lane. Returns a dict: the System, the two-view results, the init frame
+    pair, the initial map (poses of keyframes 0-1 and the points) and per
+    call (kind, ms); ms is the host clock around a synchronised call when
+    `timed`, else None."""
     import torch
 
-    L, G, F, P = BA_SHAPES["L"], BA_SHAPES["G"], BA_SHAPES["F"], BA_SHAPES["P"]
+    from dvm_slam_tpu_torch.geometry import two_view
+    from dvm_slam_tpu_torch.io import config
+    from dvm_slam_tpu_torch.models.system import System
+    from dvm_slam_tpu_torch.tracking import tracker as trk
+
+    settings = config.settings_from_dict(
+        {k: dict(v) if isinstance(v, dict) else v for k, v in EUROC_SETTINGS.items()})
+    inits = []
+    original = two_view.reconstruct_two_views
+
+    def recording(*args, **kwargs):
+        res = original(*args, **kwargs)
+        inits.append(res)
+        return res
+
+    two_view.reconstruct_two_views = recording
+    try:
+        sysm = System(settings, device=device, use_kernel=use_kernel)
+        t = sysm.tracker
+        calls, init_pair, init_map = [], None, None
+        for i, img in enumerate(imgs):
+            was, n_kf0 = t.state, int(t.map.n_kf) if timed else 0
+            t0 = time.perf_counter()
+            sysm.track_monocular(img, i / FPS3)
+            if timed:
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 if timed else None
+            if was == trk.NOT_INITIALIZED and t.state == trk.OK:
+                init_pair = (int(round(t._init_ts * FPS3)), i)
+                n = int(t.map.n_pt)
+                init_map = (t.map.kf_pose[:2].clone(), n, t.map.pt_pos[:n].clone())
+                kind = "init"
+            elif t.state == trk.NOT_INITIALIZED:
+                kind = "before init"
+            elif not t.autonomous:
+                kind = "host path"
+            elif t._auto_imgs:
+                kind = "buffered"
+            elif timed and int(t.map.n_kf) > n_kf0:
+                kind = "dispatch, keyframe"
+            else:
+                kind = "dispatch"
+            calls.append((kind, ms))
+    finally:
+        two_view.reconstruct_two_views = original
+    return dict(system=sysm, inits=inits, init_pair=init_pair, init_map=init_map, calls=calls)
+
+
+def slice3_outcome(run, poses, out_path):
+    """Save the run's trajectory (TUM), read it back and align it to ground
+    truth by timestamp. Returns (tracked frames, keyframe frames, ATE m)."""
+    from dvm_slam_tpu_torch.eval import metrics
+    from dvm_slam_tpu_torch.io import trajectory
+
+    sysm = run["system"]
+    sysm.save_trajectory_tum(out_path)
+    rows = trajectory.load_tum(out_path)
+    frames = [int(round(ts * FPS3)) for ts, _ in rows]
+    ate, _, _ = metrics.ate_rmse(np.stack([T for _, T in rows]),
+                                 np.stack([np.asarray(poses[i]) for i in frames]))
+    kf_frames = sorted(int(round(ts * FPS3)) for ts in sysm.tracker.kf_timestamps.values())
+    return frames, kf_frames, ate
+
+
+def ba_inputs(device, L=BA_SHAPES["L"]):
+    """K2/K3 inputs at BA's shapes (L window rows) from numpy seed 0: indices
+    in [-1, P) with repeats, one row all -1."""
+    import torch
+
+    G, F, P = BA_SHAPES["G"], BA_SHAPES["F"], BA_SHAPES["P"]
     rng = np.random.RandomState(0)
     vals = rng.randn(L, G, F).astype(np.float32)
     pidx = rng.randint(-1, P, (L, F)).astype(np.int32)
@@ -404,21 +533,26 @@ def main() -> int:
     phase_done(7)
 
     # ---- 8. K2 and K3 against their plain versions at BA's shapes --------
+    # at the slice-2 window (L = 20) and at System's default one (L = 32)
+    k2_err = k3_err = 0.0
+    for L in (BA_SHAPES["L"], L_SYSTEM):
+        vals, pidx, pts_pl, P = ba_inputs(dev, L)
+        adj_k = scatter_kernel.onehot_adjoint(vals, pidx, P)
+        adj_p = scatter.onehot_adjoint_plain(vals, pidx, P)
+        gat_k = scatter_kernel.onehot_gather(pts_pl, pidx)
+        gat_p = scatter.onehot_gather_plain(pts_pl, pidx)
+        torch.cuda.synchronize()
+        e2 = float((adj_k - adj_p).abs().max())
+        k2_bound = K2_RTOL * (1.0 + float(adj_p.abs().max()))
+        e3 = float((gat_k - gat_p).abs().max())
+        print(f"[8] K2 {tuple(vals.shape)} -> {tuple(adj_k.shape)}: max abs err {e2:.3e} "
+              f"(bound {k2_bound:.3e})")
+        print(f"[8] K3 {tuple(pts_pl.shape)} x {tuple(pidx.shape)} -> {tuple(gat_k.shape)}: "
+              f"bit-identical {torch.equal(gat_k, gat_p)}, max abs err {e3:.3e}")
+        check(e2 <= k2_bound, f"K2 error {e2} > {k2_bound} at L={L}")
+        check(torch.equal(gat_k, gat_p), f"K3 differs from its plain version at L={L}")
+        k2_err, k3_err = max(k2_err, e2), max(k3_err, e3)
     vals, pidx, pts_pl, P = ba_inputs(dev)
-    adj_k = scatter_kernel.onehot_adjoint(vals, pidx, P)
-    adj_p = scatter.onehot_adjoint_plain(vals, pidx, P)
-    gat_k = scatter_kernel.onehot_gather(pts_pl, pidx)
-    gat_p = scatter.onehot_gather_plain(pts_pl, pidx)
-    torch.cuda.synchronize()
-    k2_err = float((adj_k - adj_p).abs().max())
-    k2_bound = K2_RTOL * (1.0 + float(adj_p.abs().max()))
-    k3_err = float((gat_k - gat_p).abs().max())
-    print(f"[8] K2 {tuple(vals.shape)} -> {tuple(adj_k.shape)}: max abs err {k2_err:.3e} "
-          f"(bound {k2_bound:.3e})")
-    print(f"[8] K3 {tuple(pts_pl.shape)} x {tuple(pidx.shape)} -> {tuple(gat_k.shape)}: "
-          f"bit-identical {torch.equal(gat_k, gat_p)}, max abs err {k3_err:.3e}")
-    check(k2_err <= k2_bound, f"K2 error {k2_err} > {k2_bound}")
-    check(torch.equal(gat_k, gat_p), "K3 differs from its plain version")
     phase_done(8)
 
     # ---- 9. slice 2 through the kernels -----------------------------------
@@ -522,6 +656,116 @@ def main() -> int:
     print(f"[11] K2 {k2_ms * 1e3:.2f} us per call, plain {k2p_ms * 1e3:.2f} us on {card}")
     print(f"[11] K3 {k3_ms * 1e3:.2f} us per call, plain {k3p_ms * 1e3:.2f} us on {card}")
     phase_done(11)
+
+    # ---- 12. slice 3: System.track_monocular from frame 0 through the kernels
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out_dir, exist_ok=True)
+    orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
+    t0 = time.perf_counter()
+    run3 = run_slice3(imgs_all, dev, None)
+    frames3, kf3, ate3 = slice3_outcome(run3, poses_all,
+                                        os.path.join(out_dir, "slice3_kernels_tum.txt"))
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    counts3 = {"orb_describe": orb_kernel.launches,
+               "onehot_adjoint": scatter_kernel.launches_adjoint,
+               "onehot_gather": scatter_kernel.launches_gather}
+    sys3 = run3["system"]
+    t3, m3 = sys3.tracker, sys3.map
+    n_kf3 = int(m3.n_kf)
+    init3 = run3["inits"][-1] if run3["inits"] else None
+    used_h = bool(init3.used_homography) if init3 is not None else None
+    n_good = int(init3.good.sum()) if init3 is not None else 0
+    ba_iters = sys3.mapper.ba_iters
+    n_kf_ba = n_kf3 - 2       # every keyframe after the two of the init runs one BA
+    want_k2 = (INIT_BA_ITERS + 6) + n_kf_ba * (ba_iters + 6)
+    want_k3 = (INIT_BA_ITERS + 7) + n_kf_ba * (ba_iters + 7)
+    print(f"[12] System at 600x350 (resized from {H}x{W}), K {sys3.settings.camera.K().tolist()}; "
+          f"{len(imgs_all)} frames in {wall3:.2f} s (first calls included)")
+    print(f"[12] init at frames {run3['init_pair']} (JAX CPU ref {JAX_REF3_INIT_PAIR}), "
+          f"{len(run3['inits'])} two-view calls, homography {used_h} (ref {JAX_REF3_USED_H}), "
+          f"good points {n_good} (ref {JAX_REF3_INIT_GOOD})")
+    print(f"[12] final state {t3.state}; frames with a pose {len(frames3)} (ref "
+          f"{JAX_REF3_N_TRACKED}); keyframes at frames {kf3} (ref {JAX_REF3_KF_FRAMES}); "
+          f"n_kf {n_kf3}, n_kf_host {t3.n_kf_host}; valid points {int(m3.pt_valid.sum())}")
+    print(f"[12] ATE (Sim3-aligned) {ate3:.6f} m (bound {ATE_BOUND3_M:.6f} m = 3x the ref's "
+          f"{JAX_REF3_ATE_M} m)")
+    print(f"[12] launches: {counts3}; expected K2 {want_k2}, K3 {want_k3} (init BA of "
+          f"{INIT_BA_ITERS} iterations + {n_kf_ba} keyframe BAs of {ba_iters})")
+    ip = run3["init_pair"]
+    ref_first = [p[0] for p, _, _ in JAX_REF3_INIT_BY_SEED]
+    ref_second = [p[1] for p, _, _ in JAX_REF3_INIT_BY_SEED]
+    ref_good = [g for _, _, g in JAX_REF3_INIT_BY_SEED]
+    print(f"[12] JAX CPU ref over agents 0-5: init pairs "
+          f"{[p for p, _, _ in JAX_REF3_INIT_BY_SEED]}, homography "
+          f"{[h for _, h, _ in JAX_REF3_INIT_BY_SEED]}, good points {ref_good}")
+    check(ip is not None and ip[0] <= max(ref_first) + 1 and ip[1] <= max(ref_second) + 1,
+          f"init at frames {ip}, later than the JAX CPU ref's spread")
+    check((1 - INIT_GOOD_RTOL) * min(ref_good) <= n_good <= (1 + INIT_GOOD_RTOL) * max(ref_good),
+          f"{n_good} initial good points, JAX CPU ref {min(ref_good)}-{max(ref_good)}")
+    check(t3.state == tracker.OK, f"final state {t3.state}")
+    # the reference gives a pose to every frame after its init
+    n_after = len(imgs_all) - ip[1]
+    check(len(frames3) >= n_after - 2, f"{len(frames3)} frames with a pose of {n_after}")
+    check(abs(n_kf3 - len(JAX_REF3_KF_FRAMES)) <= 2, f"{n_kf3} keyframes")
+    check(t3.n_kf_host == n_kf3 and set(t3.kf_timestamps) == set(range(n_kf3)),
+          "host keyframe mirror differs from the map")
+    check(ate3 < ATE_BOUND3_M, f"ATE {ate3} m >= {ATE_BOUND3_M} m")
+    check(counts3["onehot_adjoint"] == want_k2, f"K2 launched {counts3['onehot_adjoint']} times")
+    check(counts3["onehot_gather"] == want_k3, f"K3 launched {counts3['onehot_gather']} times")
+    check(counts3["orb_describe"] == N_LEVELS * len(imgs_all),
+          f"K1 launched {counts3['orb_describe']} times for {len(imgs_all)} frames")
+    check(bool(torch.isfinite(m3.kf_pose[:n_kf3]).all())
+          and bool(torch.isfinite(m3.pt_pos).all()), "non-finite map")
+    phase_done(12)
+
+    # ---- 13. slice 3 through the plain versions ---------------------------------
+    run3p = run_slice3(imgs_all, dev, False)
+    frames3p, kf3p, ate3p = slice3_outcome(run3p, poses_all,
+                                           os.path.join(out_dir, "slice3_plain_tum.txt"))
+    check(orb_kernel.launches == counts3["orb_describe"]
+          and scatter_kernel.launches_adjoint == counts3["onehot_adjoint"]
+          and scatter_kernel.launches_gather == counts3["onehot_gather"],
+          "the plain path launched a kernel")
+    (P_k, n_k, X_k), (P_p, n_p, X_p) = run3["init_map"], run3p["init_map"]
+    d_init = float((P_k - P_p).abs().max())
+    d_pts = float((X_k - X_p).abs().max()) if n_k == n_p else float("inf")
+
+    def traj_np(run):
+        return np.stack([np.asarray(T.cpu() if hasattr(T, "cpu") else T, np.float32)
+                         for _, T, _ in run["system"].tracker.trajectory])
+
+    same_rows = frames3 == frames3p
+    d_traj = float(np.abs(traj_np(run3) - traj_np(run3p)).max()) if same_rows else float("inf")
+    print(f"[13] plain path: init at {run3p['init_pair']}; initial keyframe poses differ by "
+          f"{d_init:.3e}, points by {d_pts:.3e} ({n_p} vs {n_k}); keyframes at {kf3p}; "
+          f"trajectory rows identical {same_rows}, poses differ by {d_traj:.3e}; ATE {ate3p:.6f} m")
+    check(run3p["init_pair"] == run3["init_pair"], "the paths initialize at different frames")
+    check(n_p == n_k and d_init <= POSE_ATOL, f"initial maps differ (poses by {d_init})")
+    check(kf3p == kf3, f"keyframe frames differ: kernels {kf3}, plain {kf3p}")
+    check(same_rows and d_traj <= POSE_ATOL2, f"trajectories differ (poses by {d_traj})")
+    phase_done(13)
+
+    # ---- 14. timing -----------------------------------------------------------------
+    groups = {}
+    for name, uk in (("kernels", None), ("plain", False), ("plain", False), ("kernels", None)):
+        for kind, ms in run_slice3(imgs_all, dev, uk, timed=True)["calls"]:
+            groups.setdefault((name, kind), []).append(ms)
+    for (name, kind), ms in sorted(groups.items()):
+        ms = np.asarray(ms)
+        p50, p90 = np.percentile(ms, [50, 90])
+        print(f"[14] track_monocular with {name}, {kind} calls: median {p50:.2f} ms, p90 "
+              f"{p90:.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
+    v32, i32, pts32, P = ba_inputs(dev, L_SYSTEM)
+    k2_32 = time_ms(lambda: scatter_kernel.onehot_adjoint(v32, i32, P), 200)
+    k2p_32 = time_ms(lambda: scatter.onehot_adjoint_plain(v32, i32, P), 50)
+    k3_32 = time_ms(lambda: scatter_kernel.onehot_gather(pts32, i32), 200)
+    k3p_32 = time_ms(lambda: scatter.onehot_gather_plain(pts32, i32), 200)
+    print(f"[14] K2 at L={L_SYSTEM} {k2_32 * 1e3:.2f} us per call, plain {k2p_32 * 1e3:.2f} us "
+          f"on {card}")
+    print(f"[14] K3 at L={L_SYSTEM} {k3_32 * 1e3:.2f} us per call, plain {k3p_32 * 1e3:.2f} us "
+          f"on {card}")
+    phase_done(14)
     print(f"total {time.perf_counter() - t_start:.2f} s")
 
     measured = {"orb_describe": (worst_ang, k_ms, t_ms),
@@ -529,7 +773,7 @@ def main() -> int:
                 "onehot_gather": (k3_err, k3_ms, k3p_ms)}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": counts[name], "max_abs_err": measured[name][0],
+        "launches": counts3[name], "max_abs_err": measured[name][0],
         "ms": measured[name][1], "plain_ms": measured[name][2],
     } for name, (src, tpu) in KERNELS.items()]}))
     print(card)

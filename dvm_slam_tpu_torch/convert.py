@@ -1,14 +1,17 @@
 """Exchange of state between the JAX package and the port.
 
-The port carries no weights; what crosses is the map, frames, the
-autonomous tracker state and configs.
+The port carries no weights; what crosses is the map and its metadata,
+frames, the tracker's state and the settings.
 Both packages use the same field names, dtypes and shapes, so a JAX
 `MapState` or `Frame` given as a dict of numpy arrays (`x._asdict()` with
 each leaf passed through `np.asarray`) becomes the port's NamedTuple of
 tensors and back, and a `TrackerConfig` crosses as the dict of
 `dataclasses.asdict`. The JAX front end's `use_pallas` maps to the port's
 `use_kernel`. `autonomous_step`'s `mapper_cfg` is a plain tuple of Python
-numbers in both packages and crosses as it is.
+numbers in both packages and crosses as it is. `SystemSettings` crosses as
+`dataclasses.asdict`, `MapMeta` as a dict of numpy arrays, and the host
+state of a `MonocularTracker` as the dict `tracker_host_state_to_numpy`
+reads from either package's tracker.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from .frontend.extractor import Frame, FrontendConfig
-from .mapping.map_state import MapState
+from .io import config
+from .mapping.map_state import MapMeta, MapState
 from .tracking.tracker import AutoState, TrackerConfig
 
 
@@ -66,3 +70,52 @@ def tracker_config_to_dict(cfg: TrackerConfig) -> dict:
     d = dataclasses.asdict(cfg)
     d["frontend"]["use_pallas"] = d["frontend"].pop("use_kernel")
     return d
+
+
+def map_meta_from_numpy(arrays: dict) -> MapMeta:
+    return MapMeta(**{k: v if k == "agent_id" else np.array(v) for k, v in arrays.items()})
+
+
+def map_meta_to_numpy(meta) -> dict:
+    return {k: getattr(meta, k) if k == "agent_id" else np.array(getattr(meta, k))
+            for k in ("kf_uuid", "pt_uuid", "kf_creator", "pt_creator", "agent_id")}
+
+
+def system_settings_from_dict(d: dict) -> config.SystemSettings:
+    """The port's `SystemSettings` from the JAX package's `dataclasses.asdict`."""
+    return config.SystemSettings(**{
+        **d, "camera": config.CameraSettings(**d["camera"]),
+        "orb": config.OrbSettings(**d["orb"]), "imu": config.ImuSettings(**d["imu"])})
+
+
+_HOST_STATE = ("last_pose", "velocity", "frames_since_kf", "ref_kf_tracked", "state",
+               "n_kf_host", "last_kf_slot", "kf_timestamps")
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def tracker_host_state_to_numpy(t) -> dict:
+    """The host state of a `MonocularTracker` of either package: poses as
+    numpy [7], counters as ints, the state name, keyframe timestamps."""
+    return {
+        "last_pose": _np(t.last_pose), "velocity": _np(t.velocity),
+        "frames_since_kf": int(t.frames_since_kf), "ref_kf_tracked": int(t.ref_kf_tracked),
+        "state": t.state, "n_kf_host": int(t.n_kf_host), "last_kf_slot": int(t.last_kf_slot),
+        "kf_timestamps": dict(t.kf_timestamps),
+    }
+
+
+def tracker_host_state_from_numpy(t, d: dict):
+    """Write a host state (`tracker_host_state_to_numpy`) into the port's
+    tracker `t`; poses go to the tracker's device."""
+    for k in _HOST_STATE:
+        v = d[k]
+        if k in ("last_pose", "velocity"):
+            v = torch.as_tensor(np.asarray(v, np.float32), device=t.device)
+        elif k == "kf_timestamps":
+            v = dict(v)
+        setattr(t, k, v)

@@ -1,10 +1,12 @@
 """SO(3) / SE(3) Lie groups as batched PyTorch functions.
 
-Port of the SO3/SE3 part of `dvm_slam_tpu/geometry/lie.py` (Sim3 waits for
+Port of the SO3/SE3 part of `dvm_slam_tpu/geometry/lie.py` and of the Sim3
+group operations trajectory alignment needs (the Sim3 tangent space waits for
 the loop-closing slice). Same storage conventions:
 
 * quaternion `[..., 4]` scalar-first `(w, x, y, z)`, unit norm;
 * SE3 `[..., 7]` = `(qw, qx, qy, qz, tx, ty, tz)`;
+* Sim3 `[..., 8]` = `(qw, qx, qy, qz, tx, ty, tz, s)`, scale stored directly;
 * se3 tangent `[..., 6]` = `(v, omega)`, translation part first.
 
 Every function broadcasts over leading dims and is branch-free
@@ -245,3 +247,30 @@ def se3_from_matrix(M):
 def se3_retract(T, xi):
     """Left-multiplicative retraction: exp(xi) * T (optimizer update rule)."""
     return se3_mul(se3_exp(xi), T)
+
+
+# --------------------------------------------------------------------------
+# Sim(3): the group action T * p = s R p + t
+# --------------------------------------------------------------------------
+
+def sim3_identity(shape=(), dtype=torch.float32, device=None):
+    S = torch.zeros(tuple(shape) + (8,), dtype=dtype, device=device)
+    S[..., 0] = 1.0
+    S[..., 7] = 1.0
+    return S
+
+
+def sim3_q(S):
+    return S[..., 0:4]
+
+
+def sim3_t(S):
+    return S[..., 4:7]
+
+
+def sim3_s(S):
+    return S[..., 7]
+
+
+def sim3_apply(S, p):
+    return sim3_s(S)[..., None] * quat_rotate(sim3_q(S), p) + sim3_t(S)

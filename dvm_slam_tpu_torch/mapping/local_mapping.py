@@ -4,9 +4,9 @@ and windowed BA, per new keyframe.
 Port of the per-keyframe chain of `dvm_slam_tpu/mapping/local_mapping.py`
 (`LocalMapping.cc` semantics): `cull_points`, `create_new_points`,
 `fuse_duplicates`, `_compact_obs`, `local_ba` (monocular, with the
-two-camera gauge pin) and `_mapper_step` / `_mapper_chain`. `local_ba_batched`,
-`global_ba`, `apply_gba_correction` and the host `LocalMapper` wait for
-later slices.
+two-camera gauge pin), `_mapper_step` / `_mapper_chain` and the visual part
+of the host `LocalMapper`. `local_ba_batched`, `global_ba`,
+`apply_gba_correction` and the inertial stages wait for later slices.
 
 Three rules keep the outputs equal to the reference's:
 
@@ -427,3 +427,57 @@ def _mapper_chain(m, c, K, *, n_neighbors: int, n_levels: int, scale_factor: flo
     return _mapper_step(m, c, K, n_neighbors, n_levels, scale_factor, bool(run_ba_traced),
                         ba_local=ba_local, ba_fixed=ba_fixed, ba_pts=ba_pts,
                         ba_iters=ba_iters, bf=bf, use_kernel=use_kernel)
+
+
+# --------------------------------------------------------------------------
+# host-side local mapper
+# --------------------------------------------------------------------------
+
+class LocalMapper:
+    """Host side of the mapping pipeline, the reference's LocalMapping
+    thread as synchronous calls: the initial map's BA, then the
+    per-keyframe chain. Visual only; the inertial stages are ROADMAP item 13."""
+
+    def __init__(self, n_neighbors=5, ba_local=16, ba_fixed=16, ba_pts=4096,
+                 ba_iters=8, run_ba_every=1):
+        self.n_neighbors = n_neighbors
+        self.ba_local = ba_local
+        self.ba_fixed = ba_fixed
+        self.ba_pts = ba_pts
+        self.ba_iters = ba_iters
+        self.run_ba_every = run_ba_every
+        self._kf_count = 0
+
+    def initialize_imu(self, tracker):
+        raise NotImplementedError("IMU initialization is not ported yet (ROADMAP item 13)")
+
+    def refine_scale(self, tracker):
+        raise NotImplementedError("inertial scale refinement is not ported yet (ROADMAP item 13)")
+
+    def _vi_local_ba(self, tracker, center_slot, window=None):
+        raise NotImplementedError("visual-inertial BA is not ported yet (ROADMAP item 13)")
+
+    def on_initial_map(self, tracker):
+        """BA of the two-keyframe initial map (4 local, 4 fixed rows, 16
+        iterations), then the point statistics."""
+        fc = tracker.config.frontend
+        m, _ = local_ba(tracker.map, 1, tracker.K, n_local=4, n_fixed=4, n_pts=self.ba_pts,
+                        iters=16, n_levels=fc.n_levels, scale_factor=fc.scale_factor,
+                        use_kernel=fc.use_kernel)
+        tracker.map = map_state.update_point_stats(m, fc.n_levels, fc.scale_factor)
+
+    def on_new_keyframe(self, tracker, slot: int):
+        """The per-keyframe chain (cull, triangulate, fuse, point stats,
+        windowed BA every `run_ba_every` keyframes) around `slot`."""
+        fc = tracker.config.frontend
+        self._kf_count += 1
+        run_ba = self._kf_count % self.run_ba_every == 0
+        c = torch.as_tensor(slot, dtype=torch.int32, device=tracker.K.device)
+        m = _mapper_step(tracker.map, c, tracker.K, n_neighbors=self.n_neighbors,
+                         n_levels=fc.n_levels, scale_factor=fc.scale_factor, run_ba=run_ba,
+                         ba_local=self.ba_local, ba_fixed=self.ba_fixed, ba_pts=self.ba_pts,
+                         ba_iters=self.ba_iters, use_kernel=fc.use_kernel)
+        tracker.map = m
+        tracker.last_pose = m.kf_pose[slot]
+        # uuids of the new points are assigned lazily (`tracker.flush_meta`)
+        tracker.meta_dirty = True

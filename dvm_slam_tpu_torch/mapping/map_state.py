@@ -1,7 +1,7 @@
 """MapState: the struct-of-arrays SLAM map.
 
-Port of `dvm_slam_tpu/mapping/map_state.py` (`MapMeta`, `stack_maps` and
-the scatter variant of `point_observers` wait for the multi-agent slices):
+Port of `dvm_slam_tpu/mapping/map_state.py` (`stack_maps` and the scatter
+variant of `point_observers` wait for the multi-agent slices):
 same fields, dtypes and shapes, so maps cross between the packages field by
 field (`convert.py`). Like the reference, every op returns a new
 `MapState`; a field it writes is cloned first, the others are shared.
@@ -15,6 +15,7 @@ undefined on CUDA, so such writes go through `scatter_set_last`.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -62,6 +63,35 @@ class MapState(NamedTuple):
     @property
     def feat_capacity(self):
         return self.kf_xy.shape[1]
+
+
+@dataclasses.dataclass
+class MapMeta:
+    """Host-side identity companion of a MapState, numpy only.
+
+    kf_uuid/pt_uuid: [cap, 2] uint64 (random 128-bit, like the reference's
+    boost uuids); creator: [cap] int32 agent id."""
+
+    kf_uuid: np.ndarray
+    pt_uuid: np.ndarray
+    kf_creator: np.ndarray
+    pt_creator: np.ndarray
+    agent_id: int
+
+    @staticmethod
+    def create(kf_cap: int, pt_cap: int, agent_id: int):
+        return MapMeta(
+            kf_uuid=np.zeros((kf_cap, 2), np.uint64),
+            pt_uuid=np.zeros((pt_cap, 2), np.uint64),
+            kf_creator=np.full((kf_cap,), -1, np.int32),
+            pt_creator=np.full((pt_cap,), -1, np.int32),
+            agent_id=agent_id,
+        )
+
+    def new_uuids(self, n, rng: np.random.Generator):
+        """n fresh [n, 2] uint64 uuids from the caller's generator (the
+        reference draws from the global `np.random`)."""
+        return rng.integers(0, 2 ** 63, size=(n, 2)).astype(np.uint64)
 
 
 def create(kf_cap: int, pt_cap: int, feat_cap: int, device=None,

@@ -1,0 +1,144 @@
+"""System facade: the `ORB_SLAM3::System` API for single-agent monocular use.
+
+Port of `dvm_slam_tpu/models/system.py` for `sensor="monocular"`:
+
+    sys = System(settings, device="cuda")
+    for ts, img in sequence:
+        T_cw = sys.track_monocular(img, ts)
+    sys.save_trajectory_tum("traj.txt")
+
+Paths that need modules not ported yet raise `NotImplementedError` naming
+their ROADMAP item: the other sensor modes (13), a vocabulary with
+relocalization and the atlas (9), the viewer (14), and map serialization and
+the atlas checkpoint (10, 11).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..io import config as config_mod
+from ..io import trajectory as traj_mod
+from ..mapping import local_mapping
+from ..ops import pyramid
+from ..tracking import tracker as trk
+
+MONOCULAR = "monocular"
+IMU_MONOCULAR = "imu-monocular"
+STEREO = "stereo"
+RGBD = "rgbd"
+IMU_STEREO = "imu-stereo"
+IMU_RGBD = "imu-rgbd"
+_SENSORS = (MONOCULAR, IMU_MONOCULAR, STEREO, RGBD, IMU_STEREO, IMU_RGBD)
+
+
+def _not_ported(what: str, items: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {items})")
+
+
+class System:
+    """One monocular SLAM agent on `device`. `use_kernel` picks the
+    hand-written kernels (None: on CUDA tensors; False: the plain
+    versions), as `FrontendConfig.use_kernel` does."""
+
+    def __init__(self, settings: "config_mod.SystemSettings | str",
+                 sensor: str = MONOCULAR, agent_id: int = 0,
+                 vocabulary_file: Optional[str] = None, use_viewer: bool = False,
+                 device="cuda", use_kernel: Optional[bool] = None):
+        if sensor not in _SENSORS:
+            raise NotImplementedError(f"unknown sensor mode {sensor!r}; supported: {_SENSORS}")
+        if sensor != MONOCULAR:
+            raise _not_ported(f"sensor mode {sensor!r}", "13")
+        if vocabulary_file:
+            raise _not_ported("place recognition and relocalization (vocabulary_file)", "9")
+        if use_viewer:
+            raise _not_ported("the viewer", "14")
+        if isinstance(settings, str):
+            settings = config_mod.load_settings(settings)
+        self.settings = settings
+        self.sensor = sensor
+        self.agent_id = agent_id
+        self.device = torch.device(device)
+        self.mapper = local_mapping.LocalMapper()
+        self.tracker = trk.MonocularTracker(
+            settings.tracker_config(use_kernel), settings.camera.K(),
+            np.asarray(settings.camera.dist, np.float32), local_mapper=self.mapper,
+            rng_seed=agent_id, device=self.device)
+        self.tracker.meta.agent_id = agent_id
+        if settings.load_atlas_from_file:
+            self.load_atlas(settings.load_atlas_from_file)
+        # the tracking/mapping overlap: the tracker enters the autonomous
+        # lane by itself once initialization is OK
+        if settings.autonomous:
+            self.tracker.auto_mode = True
+            self.tracker.auto_batch = int(settings.auto_batch)
+            self.tracker.async_depth = int(settings.async_depth)
+
+    # -- tracking -------------------------------------------------------
+
+    def track_monocular(self, img, timestamp: float):
+        """`System::TrackMonocular`: grayscale (or RGB, averaged) image in,
+        world->camera SE3 [7] out (None before initialization). A resize to
+        the settings' output size is the reference's linear resize."""
+        img = torch.as_tensor(np.asarray(img) if not isinstance(img, torch.Tensor) else img)
+        img = img.to(self.device)
+        if img.ndim == 3:
+            img = img.to(torch.float64).mean(-1)
+        c = self.settings.camera
+        if ((c.new_width, c.new_height) != (None, None)
+                and tuple(img.shape) != (c.out_height, c.out_width)):
+            img = pyramid.resize(img.to(torch.float32), c.out_height, c.out_width)
+        return self.tracker.process_image(img.to(torch.float32), timestamp)
+
+    def get_tracking_state(self):
+        return self.tracker.state
+
+    def get_agent_id(self):
+        return self.agent_id
+
+    @property
+    def map(self):
+        return self.tracker.map
+
+    # -- map exchange and checkpoint --------------------------------------
+
+    def serialize_map(self, own_only: bool = False) -> bytes:
+        raise _not_ported("map serialization (multiagent/codec.py)", "11")
+
+    def save_atlas(self, path: str):
+        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "10 and 11")
+
+    def load_atlas(self, path: str):
+        raise _not_ported("the atlas checkpoint (codec, wirecodec, merge_maps)", "10 and 11")
+
+    # -- trajectory export -----------------------------------------------
+
+    def save_trajectory_tum(self, path: str):
+        self.tracker.drain_auto()
+        traj_mod.save_tum(path, self.tracker.trajectory)
+
+    def save_trajectory_euroc(self, path: str):
+        self.tracker.drain_auto()
+        traj_mod.save_euroc(path, self.tracker.trajectory)
+
+    def save_trajectory_kitti(self, path: str):
+        self.tracker.drain_auto()
+        traj_mod.save_kitti(path, self.tracker.trajectory)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """`System::SaveKeyFrameTrajectoryTUM`: keyframe poses only."""
+        self.tracker.drain_auto()
+        m = self.map
+        n_kf = int(m.n_kf)
+        kf_valid = m.kf_valid.cpu().numpy()
+        rows = [(ts, m.kf_pose[slot], "KF")
+                for slot, ts in sorted(self.tracker.kf_timestamps.items(), key=lambda kv: kv[1])
+                if slot < n_kf and kf_valid[slot]]
+        traj_mod.save_tum(path, rows)
+
+    def shutdown(self):
+        if self.settings.save_atlas_to_file:
+            self.save_atlas(self.settings.save_atlas_to_file)

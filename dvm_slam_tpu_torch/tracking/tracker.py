@@ -2,15 +2,17 @@
 projection, pose-only Gauss-Newton after each; then the keyframe decision
 and, for a new keyframe, the mapper chain with windowed BA.
 
-Port of the device step of `dvm_slam_tpu/tracking/tracker.py`
+Port of `dvm_slam_tpu/tracking/tracker.py`: the device step
 (`project_points`, `track_frame`, `make_and_track`, `update_visibility`,
-`create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`),
-plus two helpers taken from the reference's host code: `bootstrap_from_depth`
-(the map seeding of `MonocularTracker._try_initialize_depth`) and
-`motion_model_step` (the pose chain of `autonomous_step`). The
-`MonocularTracker` state machine and monocular two-view initialization wait
-for a later slice; the packed outcome rows of the reference
-(`autonomous_step_packed`) are a TPU transfer workaround and are not ported.
+`create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`) and
+the host state machine `MonocularTracker` for a monocular pinhole camera
+(two-view initialization, motion-model tracking, the keyframe decision, the
+pipelined lane and the autonomous lane). Two helpers come from the
+reference's host code: `bootstrap_from_depth` (the map seeding of
+`_try_initialize_depth`) and `motion_model_step` (the pose chain of
+`autonomous_step`). `autonomous_step_batch` returns the reference's packed
+[B,10] outcome rows; the reference's separate packed single step is that
+call with B = 1.
 
 As in the reference, both stages project against the full point table;
 frustum, distance-range and viewing-angle gates (`Frame::isInFrustum`) cut
@@ -23,10 +25,11 @@ import dataclasses
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..frontend.extractor import Frame, FrontendConfig, make_frame
-from ..geometry import cameras, lie
+from ..geometry import cameras, lie, two_view
 from ..mapping import local_mapping, map_state
 from ..ops import matching
 from . import pose_opt
@@ -315,3 +318,565 @@ def update_visibility(m: map_state.MapState, visible, found):
         pt_visible=m.pt_visible + visible.to(torch.int32),
         pt_found=m.pt_found + found.to(torch.int32),
     )
+
+
+# --------------------------------------------------------------------------
+# host-side tracker (the "Tracking thread")
+# --------------------------------------------------------------------------
+
+NOT_INITIALIZED = "NOT_INITIALIZED"
+OK = "OK"
+RECENTLY_LOST = "RECENTLY_LOST"
+LOST = "LOST"
+
+RANSAC_ITERS = 200
+
+
+class _HostCopy:
+    """A device tensor on its way to the host: on the card a non-blocking
+    copy into pinned memory and a CUDA event behind it; on the CPU the
+    tensor itself, always ready."""
+
+    def __init__(self, t):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
+
+
+class MonocularTracker:
+    """Host state machine around the tracking step (`Tracking::Track`):
+    monocular two-view initialization, motion-model prediction, lost
+    handling and the keyframe decision, with two overlapped lanes: the
+    pipelined lane (decisions `async_depth` frames behind the dispatch) and
+    the autonomous lane (`autonomous_step`, keyframes and mapping inside the
+    step, bookkeeping retired from outcome rows).
+
+    Monocular pinhole only. Every tensor lives on `device`. The two RANSAC
+    samplers draw from a `torch.Generator` on the CPU seeded with `rng_seed`
+    (`_ransac_noise`), so the card and the CPU see the same draws; keyframe
+    and point uuids come from a numpy generator with the same seed.
+    Relocalization (`relocalizer`) and the multi-map atlas (`atlas`) are
+    hooks that stay None until ROADMAP items 9 and 10."""
+
+    def __init__(self, config: TrackerConfig, K, dist, local_mapper=None, rng_seed=0,
+                 relocalizer=None, inertial=False, imu_calib=None, T_cb=None,
+                 device="cuda"):
+        if inertial or config.sensor != "monocular":
+            raise _not_ported(f"the {'inertial' if inertial else config.sensor} tracker", 13)
+        if config.camera_model != "pinhole":
+            raise _not_ported(f"camera model {config.camera_model!r}", 13)
+        self.device = torch.device(device)
+        self.config = config
+        self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+        self.dist = torch.as_tensor(np.asarray(dist, np.float32), device=self.device)
+        self._last_good_ts = None
+        self.map = map_state.create(config.kf_cap, config.pt_cap, config.frontend.capacity,
+                                    device=self.device)
+        self.meta = map_state.MapMeta.create(config.kf_cap, config.pt_cap, agent_id=0)
+        self.state = NOT_INITIALIZED
+        self.velocity = lie.se3_identity(device=self.device)
+        self.last_pose = lie.se3_identity(device=self.device)
+        self.init_frame = None
+        self.frames_since_kf = 0
+        self.ref_kf_tracked = 0
+        self.last_kf_slot = -1
+        self.local_mapper = local_mapper
+        self.relocalizer = relocalizer  # callable (map, frame) -> (ok, T, n)
+        self.atlas = None
+        self.n_frames = 0
+        self._lost_frames = 0
+        self.rng = torch.Generator(device="cpu")
+        self.rng.manual_seed(rng_seed)
+        self.uuid_rng = np.random.default_rng(rng_seed)
+        self.trajectory = []     # (timestamp, T_cw [7], state); poses stay on the device
+        self.kf_timestamps = {}  # kf slot -> frame timestamp
+        self._cur_ts = None
+        self._init_ts = None
+        self.meta_dirty = False  # new points exist whose uuids are unassigned
+        self.n_kf_host = 0       # host mirror of map.n_kf (keyframes are append-only)
+        # pipelined lane (async_depth > 0): state-machine decisions run
+        # async_depth frames behind the dispatch
+        self.async_depth = 0
+        self._pipeline = []      # [(timestamp, frame, res, n_inliers copy)]
+        # autonomous lane (enter_autonomous): keyframe decision and mapper
+        # chain inside the step; outcome rows retire up to async_depth late
+        self.autonomous = False
+        self._auto_state = None
+        self._auto_flags = []    # [(timestamps, outcome rows copy, n frames)]
+        # auto_mode: (re)enter the autonomous lane whenever tracking is OK
+        self.auto_mode = False
+        # auto_batch: frames per autonomous dispatch; a loss inside a batch
+        # hands the rest of the buffered frames back to the host path
+        self.auto_batch = 1
+        self._auto_imgs = []     # buffered (img, ts) awaiting a full batch
+
+    def _ransac_noise(self, n: int):
+        """Gumbel noise [iters, n] of the homography and the essential RANSAC
+        samplers, drawn on the CPU from `self.rng` and moved to the device."""
+        u = torch.rand((2, RANSAC_ITERS, n), generator=self.rng, dtype=torch.float32)
+        g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+        g = g.to(self.device)
+        return g[0], g[1]
+
+    def _new_uuids(self, n: int):
+        return self.meta.new_uuids(n, self.uuid_rng)
+
+    def flush_meta(self):
+        """Assign uuids to points the mapper created since the last flush;
+        every consumer of `meta` calls it first."""
+        if not self.meta_dirty:
+            return
+        npts = int(self.map.n_pt)
+        fresh = self.meta.pt_uuid[:npts].sum(axis=1) == 0
+        nf = int(fresh.sum())
+        if nf:
+            self.meta.pt_uuid[:npts][fresh] = self._new_uuids(nf)
+            self.meta.pt_creator[:npts][fresh] = self.meta.agent_id
+        self.meta_dirty = False
+
+    # -- public API ---------------------------------------------------------
+
+    def process_image(self, img, timestamp: float):
+        """`System::TrackMonocular`: grayscale [H,W] (uint8 or float32,
+        0..255) in, world->camera pose [7] out (None until initialized or
+        when lost). The image is uploaded in the caller's dtype."""
+        img = torch.as_tensor(img).to(self.device)
+        if self.state == NOT_INITIALIZED:
+            frame = make_frame(img, self.K, self.dist, self.config.frontend)
+            return self.process_frame(frame, timestamp)
+        self.n_frames += 1
+        self._cur_ts = timestamp
+        if self.auto_mode and not self.autonomous and self.state == OK:
+            self.enter_autonomous()
+        if self.autonomous:
+            return self._process_autonomous(img, timestamp)
+        if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
+            self._try_relocalize(None, timestamp)
+        T_pred, v_pred = self._predict_pose()
+        frame, res, pv, pf = make_and_track(img, self.map, T_pred, self.K, self.dist,
+                                            self.config)
+        if self.async_depth > 0:
+            # the pipelined retire applies incremental visibility updates
+            pose = self._pipeline_push(frame, timestamp, res)
+        else:
+            pose = self._track_resolve(frame, timestamp, T_pred, v_pred, res, vis=(pv, pf))
+        if pose is not None:
+            self.trajectory.append((timestamp, pose, self.state))
+        return pose
+
+    def process_frame(self, frame: Frame, timestamp: float):
+        self.n_frames += 1
+        self._cur_ts = timestamp
+        if self.state == NOT_INITIALIZED:
+            pose = self._try_initialize(frame)
+        elif self.async_depth > 0:
+            pose = self._track_pipelined(frame, timestamp)
+        else:
+            pose = self._track(frame, timestamp)
+        if pose is not None:
+            # kept on the device; the savers materialize the trajectory
+            self.trajectory.append((timestamp, pose, self.state))
+        return pose
+
+    def process_stereo_pair(self, img_l, img_r, timestamp: float):
+        raise _not_ported("stereo tracking", 13)
+
+    def process_rgbd(self, img, depth_map, timestamp: float):
+        raise _not_ported("RGB-D tracking", 13)
+
+    def grab_imu(self, acc, gyro, dts):
+        raise _not_ported("inertial tracking", 13)
+
+    # -- pipelined tracking (decisions run async_depth frames late) ---------
+
+    def _track_pipelined(self, frame: Frame, timestamp: float):
+        T_pred = lie.se3_mul(self.velocity, self.last_pose)
+        res = track_frame(self.map, frame, T_pred, self.K, self.config)
+        return self._pipeline_push(frame, timestamp, res)
+
+    def _pipeline_push(self, frame: Frame, timestamp: float, res):
+        n_copy = _HostCopy(res.n_inliers)
+        # the prediction chain stays per-frame fresh on the device
+        self.velocity = lie.se3_mul(res.T_cw, lie.se3_inv(self.last_pose))
+        self.last_pose = res.T_cw
+        self._pipeline.append((timestamp, frame, res, n_copy))
+        if len(self._pipeline) > self.async_depth:
+            self._retire_pipelined()
+        return res.T_cw
+
+    def _retire_pipelined(self):
+        """Resolve the oldest in-flight frame: lost handling, visibility
+        counters, keyframe decision."""
+        ts, frame, res, n_copy = self._pipeline.pop(0)
+        n_inl = int(n_copy.numpy())
+        if n_inl < self.config.min_track_inliers:
+            self.state = RECENTLY_LOST if self.state == OK else LOST
+            self._lost_frames += 1
+            # drop the poisoned chain: predict again from the last good pose
+            self._pipeline.clear()
+            self.velocity = lie.se3_identity(device=self.device)
+            return
+        self._lost_frames = 0
+        self.state = OK
+        self._last_good_ts = ts
+        # incremental update: other frames are still in flight
+        self.map = update_visibility(self.map, res.visible, res.found)
+        self.frames_since_kf += 1
+        if self._need_new_keyframe(n_inl):
+            self._cur_ts = ts   # stamp the retired frame, not the newest one
+            self._create_keyframe(frame, res)
+
+    def flush_pipeline(self):
+        """Retire every in-flight frame (sequence end, before map export)."""
+        while self._pipeline:
+            self._retire_pipelined()
+
+    # -- the autonomous lane --------------------------------------------------
+
+    def enter_autonomous(self):
+        """Switch steady-state tracking to `autonomous_step`: the keyframe
+        decision and the mapper chain run inside the step; the host catches
+        up from outcome rows. Needs an initialized tracker and a mapper."""
+        if self.state != OK or self.local_mapper is None:
+            return False
+        # a pipelined record left behind would retire against slots the
+        # autonomous chain has since renumbered
+        self.flush_pipeline()
+        if self.state != OK:
+            return False
+        fc = self.config.frontend
+        mc = self.local_mapper
+        self._auto_cfg = (mc.n_neighbors, fc.n_levels, fc.scale_factor, mc.ba_local,
+                          mc.ba_fixed, mc.ba_pts, mc.ba_iters, mc.run_ba_every)
+        i32 = functools.partial(torch.tensor, dtype=torch.int32, device=self.device)
+        self._auto_state = AutoState(
+            T_cw=self.last_pose, velocity=self.velocity,
+            frames_since_kf=i32(self.frames_since_kf),
+            ref_tracked=i32(max(self.ref_kf_tracked, 1)),
+            kf_count=i32(mc._kf_count),
+        )
+        self._auto_flags = []
+        self._auto_imgs = []
+        self.autonomous = True
+        return True
+
+    def _auto_dispatch(self, imgs, tss):
+        m, st, rows = autonomous_step_batch(imgs, self.map, self._auto_state, self.K,
+                                            self.dist, self.config, self._auto_cfg)
+        self._push_auto_record(m, st, tss, rows)
+
+    def _process_autonomous(self, img, timestamp: float):
+        B = max(int(self.auto_batch), 1)
+        self._auto_imgs.append((img, timestamp))
+        if len(self._auto_imgs) >= B:
+            imgs = torch.stack([im for im, _ in self._auto_imgs])
+            tss = [t for _, t in self._auto_imgs]
+            self._auto_imgs = []
+            self._auto_dispatch(imgs, tss)
+        # retire a record once its rows have landed and a newer record is
+        # out, or when more than async_depth frames are pending
+        while (self.autonomous and self._auto_flags
+               and ((len(self._auto_flags) >= 2 and self._record_ready(self._auto_flags[0]))
+                    or self._pending_auto_frames() > max(self.async_depth, 1))):
+            if self._retire_auto_record():
+                # the record ended lost: fold every other dispatched record
+                # (its effects are in the map already), then hand control and
+                # the buffered, undispatched frames back to the host path
+                while self._auto_flags:
+                    self._retire_auto_record()
+                pending = self._auto_imgs
+                self._auto_imgs = []
+                self.exit_autonomous(drain=False)
+                pose = self._auto_state.T_cw
+                for im, t in pending:
+                    self.n_frames -= 1  # counted at first submission
+                    p = self.process_image(im, t)
+                    pose = p if p is not None else pose
+                return pose
+        return self._auto_state.T_cw
+
+    def _push_auto_record(self, m, st, tss, rows):
+        self.map = m
+        self._auto_state = st
+        self._auto_flags.append((tss, _HostCopy(rows), len(tss)))
+
+    def _pending_auto_frames(self):
+        return sum(rec[2] for rec in self._auto_flags)
+
+    @staticmethod
+    def _record_ready(rec):
+        """Non-blocking: True once a record's outcome rows are on the host."""
+        return rec[1].ready()
+
+    def _retire_auto_record(self):
+        """Fold one record (1..B frames) into the host mirrors: trajectory
+        rows, keyframe metadata, state machine. Returns True when the record
+        ends with a lost frame and the host must leave the autonomous lane."""
+        tss, copy, n = self._auto_flags.pop(0)
+        rec = np.atleast_2d(copy.numpy()).copy()     # [B,10]: pose 7|kf|good|inl
+        poses = rec[:, :7]
+        made = rec[:, 7] > 0.5
+        good = rec[:, 8] > 0.5
+        ninl = rec[:, 9]
+        for i in range(n):
+            ts = tss[i]
+            # only tracked frames leave a row: the chain holds the last pose
+            # on a bad frame
+            if good[i]:
+                self.trajectory.append((ts, poses[i], OK))
+            if made[i]:
+                s = self.n_kf_host
+                self.n_kf_host += 1
+                self.meta.kf_uuid[s] = self._new_uuids(1)[0]
+                self.meta.kf_creator[s] = self.meta.agent_id
+                self.last_kf_slot = s
+                self.kf_timestamps[s] = ts
+                self.ref_kf_tracked = int(ninl[i])
+                self.meta_dirty = True
+                if self.local_mapper is not None:
+                    self.local_mapper._kf_count += 1
+            if not good[i]:
+                self._lost_frames += 1
+                self.state = RECENTLY_LOST if self.state == OK else LOST
+            else:
+                self._lost_frames = 0
+                self.state = OK
+                self._last_good_ts = ts
+        # leave only when the record ENDS lost: the chain recovers from a
+        # bad frame inside a batch by itself
+        return not bool(good[-1])
+
+    def drain_auto(self):
+        """Retire every pending record (autonomous and pipelined) so the host
+        mirrors are current, staying in the autonomous lane unless a frame
+        was lost. Call before reading or exporting the map."""
+        self.flush_pipeline()
+        if not self.autonomous:
+            return
+        self._flush_auto_buffer()
+        while self._auto_flags and self.autonomous:
+            if self._retire_auto_record():
+                self.exit_autonomous(drain=False)
+        if self.autonomous:
+            st = self._auto_state
+            self.last_pose = st.T_cw
+            self.velocity = st.velocity
+            self.frames_since_kf = int(st.frames_since_kf)
+
+    def _flush_auto_buffer(self):
+        """Dispatch the frames buffered for a partial batch one at a time."""
+        for img, ts in self._auto_imgs:
+            self._auto_dispatch(img[None], [ts])
+        self._auto_imgs = []
+
+    def exit_autonomous(self, drain: bool = True):
+        """Leave the autonomous lane, folding the device state back into the
+        host mirrors; with drain=True every pending record retires first."""
+        if not self.autonomous:
+            return
+        self.autonomous = False
+        if drain:
+            self._flush_auto_buffer()
+            while self._auto_flags:
+                self._retire_auto_record()
+        else:
+            self._auto_flags = []
+            self._auto_imgs = []
+        st = self._auto_state
+        self.last_pose = st.T_cw
+        self.velocity = st.velocity
+        self.frames_since_kf = int(st.frames_since_kf)
+        # the device map is the source of truth for the keyframe count:
+        # records dropped with drain=False may have made keyframes. Stamp
+        # metadata for every slot the retire never covered
+        dev_n = int(self.map.n_kf)
+        ts_fallback = self._last_good_ts if self._last_good_ts is not None else self._cur_ts
+        while self.n_kf_host < dev_n:
+            s = self.n_kf_host
+            self.n_kf_host += 1
+            self.meta.kf_uuid[s] = self._new_uuids(1)[0]
+            self.meta.kf_creator[s] = self.meta.agent_id
+            self.last_kf_slot = s
+            self.kf_timestamps[s] = ts_fallback
+            self.meta_dirty = True
+            if self.local_mapper is not None:
+                self.local_mapper._kf_count += 1
+
+    # -- initialization -----------------------------------------------------
+
+    def _try_initialize(self, frame: Frame):
+        n_valid = int(frame.valid.sum())
+        if self.init_frame is None or n_valid <= self.config.min_init_matches:
+            if n_valid > self.config.min_init_matches:
+                self.init_frame = frame
+                self._init_ts = self._cur_ts
+            return None
+        f1, f2 = self.init_frame, frame
+        idx, ok = matching.search_for_initialization(
+            f1.xy, f1.desc, f1.angle, f1.valid, f2.xy, f2.desc, f2.angle, f2.valid)
+        if int(ok.sum()) < self.config.min_init_matches:
+            # too few matches: restart from this frame
+            self.init_frame = frame
+            self._init_ts = self._cur_ts
+            return None
+        xn1 = cameras.pinhole_unproject(self.K, f1.xy)
+        xn2 = cameras.pinhole_unproject(self.K, f2.xy[torch.clamp(idx, min=0)])
+        noise_h, noise_e = self._ransac_noise(f1.capacity)
+        res = two_view.reconstruct_two_views(noise_h, noise_e, xn1, xn2, ok, focal=self.K[0],
+                                             min_triangulated=50)
+        if not bool(res.ok):
+            return None
+        self._create_initial_map(f1, f2, idx, res)
+        self.state = OK
+        return self.last_pose
+
+    def _create_initial_map(self, f1: Frame, f2: Frame, idx, res: two_view.TwoViewResult):
+        """`Tracking::CreateInitialMapMonocular`: two keyframes, triangulated
+        points, median-depth scale normalization (numpy's median: the mean of
+        the two middle depths for an even count)."""
+        dev = self.device
+        good = res.good.cpu().numpy()
+        pts = res.points.cpu().numpy()
+        depths = pts[good, 2]
+        med = float(np.median(depths)) if good.any() else 1.0
+        pts = pts / med
+        T21 = res.T21.cpu().numpy().copy()
+        T21[4:7] /= med
+        T1 = lie.se3_identity(device=dev)
+        T2 = torch.as_tensor(T21, device=dev)
+
+        n = f1.capacity
+        gmask = torch.as_tensor(good, device=dev)
+        m, slots = map_state.add_points(
+            self.map, pos=torch.as_tensor(pts, device=dev), desc=f1.desc,
+            normal=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+            min_dist=torch.zeros((n,), dtype=torch.float32, device=dev),
+            max_dist=torch.full((n,), 1e9, dtype=torch.float32, device=dev),
+            ref_kf=0, valid=gmask)
+        obs1 = torch.where(gmask, slots, -1)
+        # frame-2 feature idx[i] observes the same slot; rows without a valid
+        # match all land in the sentinel slot n, which is sliced off
+        write = gmask & (idx >= 0)
+        tgt = torch.where(write, idx, n).to(torch.int64)
+        obs2 = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+        obs2 = obs2.scatter(0, tgt, torch.where(write, slots, -1).to(torch.int32))[:n]
+        m, _ = map_state.add_keyframe(m, T1, f1.xy, f1.level, f1.angle, f1.desc, f1.valid, obs1)
+        m, _ = map_state.add_keyframe(m, T2, f2.xy, f2.level, f2.angle, f2.desc, f2.valid, obs2)
+        fc = self.config.frontend
+        m = map_state.update_point_stats(m, fc.n_levels, fc.scale_factor)
+        self.map = m
+        self.meta.kf_uuid[0:2] = self._new_uuids(2)
+        self.meta.kf_creator[0:2] = self.meta.agent_id
+        npts = int(m.n_pt)
+        self.meta.pt_uuid[:npts] = self._new_uuids(npts)
+        self.meta.pt_creator[:npts] = self.meta.agent_id
+
+        self.last_pose = T2
+        self.velocity = lie.se3_identity(device=dev)
+        self.last_kf_slot = 1
+        self.n_kf_host = 2
+        self.kf_timestamps[0] = self._init_ts
+        self.kf_timestamps[1] = self._cur_ts
+        self.ref_kf_tracked = int(good.sum())
+        self.frames_since_kf = 0
+        if self.local_mapper is not None:
+            self.local_mapper.on_initial_map(self)
+
+    # -- steady-state tracking ----------------------------------------------
+
+    def _predict_pose(self):
+        """Motion-model prediction for the next frame: (T_pred, None)."""
+        return lie.se3_mul(self.velocity, self.last_pose), None
+
+    def _track(self, frame: Frame, timestamp: float):
+        if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
+            self._try_relocalize(frame, timestamp)
+        T_pred, v_pred = self._predict_pose()
+        res = track_frame(self.map, frame, T_pred, self.K, self.config)
+        return self._track_resolve(frame, timestamp, T_pred, v_pred, res)
+
+    def _try_relocalize(self, frame: Frame, timestamp: float):
+        raise _not_ported("relocalization", 9)
+
+    def _track_resolve(self, frame: Frame, timestamp: float, T_pred, v_pred,
+                       res: TrackResult, vis=None):
+        n_inl = int(res.n_inliers)
+        if n_inl < self.config.min_track_inliers:
+            if self.relocalizer is not None:
+                self._try_relocalize(frame, timestamp)
+            self.state = RECENTLY_LOST if self.state == OK else LOST
+            self.velocity = lie.se3_identity(device=self.device)
+            self._lost_frames += 1
+            if (self.atlas is not None and self.state == LOST
+                    and self._lost_frames >= 5 and int(self.map.n_kf) >= 10):
+                self._new_map_in_atlas()
+            return None
+        self._lost_frames = 0
+        self.state = OK
+        self._last_good_ts = timestamp
+        if vis is not None:
+            self.map = self.map._replace(pt_visible=vis[0], pt_found=vis[1])
+        else:
+            self.map = update_visibility(self.map, res.visible, res.found)
+        self.velocity = lie.se3_mul(res.T_cw, lie.se3_inv(self.last_pose))
+        self.last_pose = res.T_cw
+        self.frames_since_kf += 1
+        if self._need_new_keyframe(n_inl):
+            self._create_keyframe(frame, res)
+            # the mapper's BA may have moved the keyframe: return its pose
+            return self.last_pose
+        return res.T_cw
+
+    def _new_map_in_atlas(self):
+        raise _not_ported("the multi-map atlas", 10)
+
+    def _need_new_keyframe(self, n_inliers: int):
+        """`Tracking::NeedNewKeyFrame` gates; thRefRatio 0.9 for a
+        monocular camera."""
+        if self.n_kf_host >= self.config.kf_cap - 1:
+            return False
+        c1 = self.frames_since_kf >= self.config.max_frames_between_kf
+        c2 = n_inliers < self.config.kf_ref_ratio * max(self.ref_kf_tracked, 1)
+        c3 = n_inliers > self.config.kf_min_inliers
+        return (c1 or c2) and c3
+
+    def _create_keyframe(self, frame: Frame, res: TrackResult):
+        m, _ = map_state.add_keyframe(self.map, res.T_cw, frame.xy, frame.level, frame.angle,
+                                      frame.desc, frame.valid, res.obs)
+        self.map = m
+        # keyframes are append-only: the slot is known on the host
+        s = self.n_kf_host
+        self.n_kf_host += 1
+        self.meta.kf_uuid[s] = self._new_uuids(1)[0]
+        self.meta.kf_creator[s] = self.meta.agent_id
+        self.last_kf_slot = s
+        self.kf_timestamps[s] = self._cur_ts
+        self.frames_since_kf = 0
+        self.ref_kf_tracked = int(res.n_inliers)
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_keyframe(self, s)
+        self._atlas_merge_back()
+
+    def _atlas_merge_back(self):
+        """Weld the active map into a stored one of the atlas; nothing to do
+        without an atlas."""
+        if self.atlas is None or not self.atlas.inactive:
+            return
+        raise _not_ported("the atlas merge-back", 10)

@@ -292,9 +292,13 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.ops.orb_kernel, dvm_slam_tpu_torch.ops.scatter, "
                 "dvm_slam_tpu_torch.ops.scatter_kernel, dvm_slam_tpu_torch.mapping.ba, "
                 "dvm_slam_tpu_torch.mapping.local_mapping, "
-                "dvm_slam_tpu_torch.geometry.triangulation; "
+                "dvm_slam_tpu_torch.geometry.triangulation, "
+                "dvm_slam_tpu_torch.geometry.two_view, dvm_slam_tpu_torch.geometry.alignment, "
+                "dvm_slam_tpu_torch.io.config, dvm_slam_tpu_torch.io.trajectory, "
+                "dvm_slam_tpu_torch.eval.metrics, dvm_slam_tpu_torch.models.system; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-                "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu']; "
+                "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
+                "or m == 'yaml' or m.startswith('yaml.')]; "
                 "print(bad); sys.exit(1 if bad else 0)")
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                               text=True, timeout=120)
@@ -358,11 +362,136 @@ def _reference_slice2_main():
     }))
 
 
+def euroc_settings_dict():
+    """`configs/euroc.yaml` as the JAX package loads it, with no lens
+    distortion (the synthetic renderer draws none), as a plain dict."""
+    from dvm_slam_tpu.io import config as jcfg
+
+    s = jcfg.load_settings(os.path.join(REPO, "configs", "euroc.yaml"))
+    s.camera = dataclasses.replace(s.camera, dist=(0.0, 0.0, 0.0, 0.0))
+    return dataclasses.asdict(s)
+
+
+def jax_settings(d):
+    """The JAX package's `SystemSettings` from its `dataclasses.asdict`."""
+    from dvm_slam_tpu.io import config as jcfg
+
+    return jcfg.SystemSettings(**{**d, "camera": jcfg.CameraSettings(**d["camera"]),
+                                  "orb": jcfg.OrbSettings(**d["orb"]),
+                                  "imu": jcfg.ImuSettings(**d["imu"])})
+
+
+def jax_system_run(settings, imgs, poses, out_dir):
+    """Every frame through the JAX package's `System.track_monocular(img,
+    i/20)` from frame 0 (monocular two-view init, then autonomous tracking),
+    then `save_trajectory_tum` and a Sim3-aligned ATE against ground truth
+    by timestamp. Returns a dict of the run's outcomes."""
+    from dvm_slam_tpu.eval import metrics as jmetrics
+    from dvm_slam_tpu.geometry import two_view as jtv
+    from dvm_slam_tpu.io import trajectory as jtraj
+    from dvm_slam_tpu.models import system as jsys
+
+    inits = []
+    original = jtv.reconstruct_two_views
+
+    def recording(*args, **kwargs):
+        res = original(*args, **kwargs)
+        inits.append(res)
+        return res
+
+    jtv.reconstruct_two_views = recording
+    try:
+        sysj = jsys.System(settings)
+        t = sysj.tracker
+        init_pair, n_init_points, states = None, None, []
+        for i, img in enumerate(imgs):
+            was = t.state
+            sysj.track_monocular(img, i / 20.0)
+            states.append(t.state)
+            if was == jtrk.NOT_INITIALIZED and t.state == jtrk.OK:
+                init_pair = (int(round(t._init_ts * 20)), i)
+                n_init_points = int(t.map.n_pt)
+        path = os.path.join(out_dir, "traj_tum.txt")
+        sysj.save_trajectory_tum(path)
+    finally:
+        jtv.reconstruct_two_views = original
+    rows = jtraj.load_tum(path)
+    idx = [int(round(ts * 20)) for ts, _ in rows]
+    est = np.stack([T for _, T in rows])
+    gt = np.stack([np.asarray(poses[i]) for i in idx])
+    ate, _, _ = jmetrics.ate_rmse(est, gt)
+    res = inits[-1]
+    return {
+        "init_pair": init_pair,
+        "used_homography": bool(res.used_homography),
+        "n_init_good": int(np.asarray(res.good).sum()),
+        "n_init_points": n_init_points,
+        "n_ransac_calls": len(inits),
+        "final_state": t.state,
+        "states": states,
+        "tracked_frames": idx,
+        "kf_frames": sorted(int(round(v * 20)) for v in t.kf_timestamps.values()),
+        "n_kf": int(t.map.n_kf),
+        "n_kf_host": t.n_kf_host,
+        "n_valid_points": int(np.asarray(t.map.pt_valid).sum()),
+        "ate_rmse_m": ate,
+    }
+
+
+def jax_init_outcome(settings, imgs, agent_id):
+    """The JAX `System`'s two-view initialization on `imgs` under the RANSAC
+    draws of agent `agent_id`: (init frame pair, homography, good points),
+    or None when it does not initialize on these frames."""
+    from dvm_slam_tpu.geometry import two_view as jtv
+    from dvm_slam_tpu.models import system as jsys
+
+    inits = []
+    original = jtv.reconstruct_two_views
+
+    def recording(*args, **kwargs):
+        res = original(*args, **kwargs)
+        inits.append(res)
+        return res
+
+    jtv.reconstruct_two_views = recording
+    try:
+        sysj = jsys.System(settings, agent_id=agent_id)
+        for i, img in enumerate(imgs):
+            sysj.track_monocular(img, i / 20.0)
+            if sysj.tracker.state == jtrk.OK:
+                res = inits[-1]
+                return ((int(round(sysj.tracker._init_ts * 20)), i),
+                        bool(res.used_homography), int(np.asarray(res.good).sum()))
+    finally:
+        jtv.reconstruct_two_views = original
+    return None
+
+
+def _reference_slice3_main():
+    """The JAX package's CPU reference of the smoke's slice-3 run: the
+    benchmark scene at 480x752, every frame through `System.track_monocular`
+    with `configs/euroc.yaml` (resized to 600x350, no distortion), agent 0;
+    then the two-view initialization alone under the draws of agents 1-5,
+    whose spread the smoke holds the card's initialization to."""
+    import tempfile
+
+    _, poses, imgs, _ = _scene(480, 752, 2048, 60)
+    settings = jax_settings(euroc_settings_dict())
+    with tempfile.TemporaryDirectory() as d:
+        out = jax_system_run(settings, imgs, poses, d)
+    out["init_by_seed"] = {0: (out["init_pair"], out["used_homography"], out["n_init_good"])}
+    for seed in range(1, 6):
+        out["init_by_seed"][seed] = jax_init_outcome(settings, imgs[:16], seed)
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     if "--slice2" in sys.argv:
         _reference_slice2_main()
+    elif "--slice3" in sys.argv:
+        _reference_slice3_main()
     else:
         _reference_main()
