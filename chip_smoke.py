@@ -26,10 +26,15 @@ run exits non-zero:
    K1 launched 8 times per extracted frame;
 5. slice 1 with `use_kernel=False`: identical inliers, poses to 1e-4;
 6. slice 1 timing after warm-up, one pass per path: make_and_track latency
-   per frame and K1 against the twin per level;
+   per frame;
 7. K2/K3's build seconds and ptxas report;
-8. K2 and K3 against their plain versions at BA's shapes (L=20, G=30,
-   F=512, P=4096): K2 to 1e-5 (1 + max|ref|), K3 bit-identical;
+8. K2 and K3 at BA's shapes (G=30, F=512, P=4096) and windows L = 8, 20,
+   32, on five adversarial index sets (random; a row's features all in one
+   column tile; rows of -1; indices -1, 0, P-1, P, P+1; long runs of one
+   index), K2 fed the [L,G,F] view `bundle_adjust` passes: K2 to 1e-5 (1 +
+   max|ref|) of its plain version and bit-identical to itself on a second
+   run and to the ascending-f sum `onehot_adjoint_ordered`; K3
+   bit-identical to its plain version;
 9. slice 2 through the kernels: depth bootstrap from frame 0, then
    `autonomous_step` on frames 1..59. Every frame good; keyframes made
    within 1 of the JAX CPU reference; K2/K3 launched 12/13 times per BA; the
@@ -40,8 +45,7 @@ run exits non-zero:
     flags, inliers within 2 per frame, poses to 1e-3;
 11. timing after the warm-up of phases 9-10: `autonomous_step` ms per frame
     with and without a keyframe (four passes, kernels and plain in turns),
-    `local_ba` ms per call on the final map, K2/K3 against their plain
-    versions;
+    `local_ba` ms per call on the final map;
 12. slice 3 through the kernels, the port's normal entry point: every frame
     of the slice-2 scene from frame 0 through `System.track_monocular` at
     `configs/euroc.yaml`'s settings without lens distortion (resized to
@@ -59,12 +63,25 @@ run exits non-zero:
     identical keyframe frames and trajectory rows, poses to 1e-3;
 14. timing: `track_monocular` ms per call by kind (before init, the init
     call, buffered, dispatched with and without a keyframe), four passes,
-    kernels and plain in turns; K2/K3 against their plain versions at
-    System's BA window (L = 32).
+    kernels and plain in turns;
+15. the kernel table, at the System path's shapes (K1: the 8 levels of a
+    600x350 frame, summed; K2/K3: L = 32, and L = 8 and 20 beside it): the
+    launches counted in phase 12, the wrapper-included µs (CUDA events
+    around back-to-back calls: 200 for K1; for K2/K3 five rounds of 40, in
+    turns with the library call, medians), the device-only µs (100 calls captured
+    in a CUDA graph and replayed; `torch.profiler`'s kernel rows beside it),
+    the bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the
+    larger), the one PyTorch call that computes the same function (K2: a
+    zero fill and `scatter_add_`; K3: `torch.gather`; K1: none), timed here
+    only, and the plain version; then the order in which the kernels are
+    redesigned: first those slower than their library call, by the factor,
+    then the rest by the time lost above the bound per System run.
 
 Run from the root of a checkout: `python3 chip_smoke.py`. The last line is
 `{"ok": true, "device": {...}}`; the line before it the card's name and power
-limit, and before that one JSON line describing the kernels.
+limit, and before that one JSON line describing the kernels (times of phase
+15). `python3 chip_smoke.py --kernels-only` runs phases 1-3, 7, 8 and 15
+(launch counts not taken) and prints no result line.
 """
 
 from __future__ import annotations
@@ -172,6 +189,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "onehot_gather": ("dvm_slam_tpu_torch/csrc/onehot_scatter.cu",
                       "dvm_slam_tpu/ops/pallas_scatter.py:90"),
 }
+# Phase 15's bounds: the H100 SXM data sheet's memory rate and f32 rate
+# outside the tensor cores. K1's operations per keypoint: the moments over
+# the 31x31 window (mask, x and y products, two sums), the 512 steered
+# pattern points (four products, two sums) and 256 compares.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+K1_OPS_PER_KEYPOINT = 5 * 31 * 31 + 6 * 512 + 256
+TABLE_LS = (8, 20, L_SYSTEM)   # BA windows: the init BA, slice 2, System's keyframe BA
 
 
 def card_line() -> str:
@@ -371,11 +396,68 @@ def ba_inputs(device, L=BA_SHAPES["L"]):
     return t(vals), t(pidx), t(pts), P
 
 
-def level_inputs(img, cfg):
+def adversarial_indices(L, F, P):
+    """The index sets K2 and K3 are held to, name -> pidx [L,F] int32: random
+    in [-1, P); every feature of a row in one 128-column tile (row 0: all at
+    one point); every other row all -1; only -1, 0, P-1, P and P+1; runs of
+    64 equal indices."""
+    rng = np.random.RandomState(L)
+    rand = rng.randint(-1, P, (L, F))
+    one_tile = rng.randint(256, 384, (L, F))
+    one_tile[0] = 300
+    empty = rand.copy()
+    empty[::2] = -1
+    at_p = rng.choice([-1, 0, P - 1, P, P + 1], (L, F))
+    runs = np.repeat(rng.randint(-1, P, (L, -(-F // 64))), 64, axis=1)[:, :F]
+    sets = {"random": rand, "one tile": one_tile, "rows of -1": empty, "index = P": at_p,
+            "duplicate runs": runs}
+    return {k: v.astype(np.int32) for k, v in sets.items()}
+
+
+def check_ba_kernels(dev):
+    """Phase 8: K2 and K3 at BA's shapes (G=30, F=512, P=4096) and the three
+    windows L = 8, 20, 32, on every adversarial index set, K2's input the
+    [L,G,F] view that `bundle_adjust` passes. K2 within 1e-5 (1 + max|ref|)
+    of its plain version, bit-identical to itself on a second run and to the
+    ascending-f sum (`onehot_adjoint_ordered`); K3 bit-identical to its plain
+    version. Returns the largest errors (K2, K3) against the plain versions."""
+    import torch
+
+    from dvm_slam_tpu_torch.ops import scatter, scatter_kernel
+
+    G, F, P = BA_SHAPES["G"], BA_SHAPES["F"], BA_SHAPES["P"]
+    k2_err = k3_err = 0.0
+    for L in TABLE_LS:
+        rng = np.random.RandomState(100 + L)
+        vals = torch.from_numpy(rng.randn(L, G, F).astype(np.float32)).to(dev)
+        pts = torch.from_numpy(rng.randn(3, P).astype(np.float32)).to(dev)
+        v = k2_input(vals)
+        for name, idx in adversarial_indices(L, F, P).items():
+            pidx = torch.from_numpy(idx).to(dev)
+            a1 = scatter_kernel.onehot_adjoint(v, pidx, P)
+            a2 = scatter_kernel.onehot_adjoint(v, pidx, P)
+            ap = scatter.onehot_adjoint_plain(v, pidx, P)
+            ao = scatter.onehot_adjoint_ordered(v, pidx, P)
+            g = scatter_kernel.onehot_gather(pts, pidx)
+            gp = scatter.onehot_gather_plain(pts, pidx)
+            torch.cuda.synchronize()
+            e2, b2 = float((a1 - ap).abs().max()), K2_RTOL * (1.0 + float(ap.abs().max()))
+            e3 = float((g - gp).abs().max())
+            rerun, ordered, same3 = torch.equal(a1, a2), torch.equal(a1, ao), torch.equal(g, gp)
+            print(f"[8] L={L} {name}: K2 max abs err {e2:.3e} (bound {b2:.3e}), equal on a "
+                  f"second run {rerun}, equal to the ascending-f sum {ordered}; K3 "
+                  f"bit-identical {same3}")
+            check(e2 <= b2, f"K2 error {e2} > {b2} at L={L}, {name}")
+            check(rerun and ordered, f"K2 not deterministic in ascending f at L={L}, {name}")
+            check(same3, f"K3 differs from its plain version at L={L}, {name}")
+            k2_err, k3_err = max(k2_err, e2), max(k3_err, e3)
+    return k2_err, k3_err
+
+
+def level_inputs(img, fc):
     """Per level of one frame: (raw, blur, xy) at the main path's shapes."""
     from dvm_slam_tpu_torch.ops import fast, pyramid
 
-    fc = cfg.frontend
     levels = pyramid.build_pyramid(img, fc.n_levels, fc.scale_factor)
     out = []
     for im, budget in zip(levels, fc.level_budgets):
@@ -399,7 +481,203 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
+def paired_ms(fns, reps: int, rounds: int = 5):
+    """Median ms per call of each of `fns`, timed in turns: each of `rounds`
+    rounds times `reps` back-to-back calls of every function between CUDA
+    events, so a drift of the host's speed lands on all of them alike."""
+    import torch
+
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    times = [[] for _ in fns]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(rounds):
+        for fn, t in zip(fns, times):
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            t.append(start.elapsed_time(end) / reps)
+    return [float(np.median(t)) for t in times]
+
+
+def device_us(fn, n: int = 100, replays: int = 5) -> float:
+    """Device-only µs per call: `n` calls captured in one CUDA graph, the
+    graph replayed `replays` times between CUDA events. No host work is
+    timed, only the launches back to back on the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (n * replays)
+
+
+def profiler_us(fn, kernel: str, n: int = 50):
+    """Mean device µs per launch of the CUDA kernel whose name contains
+    `kernel`, from `torch.profiler`'s kernel rows over `n` calls; None where
+    the profiler shows no such row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+    except RuntimeError as e:  # a sandbox without CUPTI: the events above stand
+        print(f"    profiler unavailable: {e}")
+        return None
+    count = sum(e.count for e in rows)
+    return sum(e.self_device_time_total for e in rows) / count if count else None
+
+
+def bound_us(nbytes: float, nops: float):
+    """(µs, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over the
+    f32 rate (H100 SXM data sheet)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e6, nops / F32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def system_levels(img_full):
+    """K1's inputs per level of one frame at the System's size (the frame
+    resized to 600x350 as `track_monocular` does)."""
+    import torch
+
+    from dvm_slam_tpu_torch.frontend.extractor import FrontendConfig
+    from dvm_slam_tpu_torch.ops import pyramid
+
+    cam, orb = EUROC_SETTINGS["camera"], EUROC_SETTINGS["orb"]
+    h, w = cam["new_height"], cam["new_width"]
+    img = pyramid.resize(img_full.to(torch.float32), h, w)
+    fc = FrontendConfig(height=h, width=w, n_features=orb["n_features"],
+                        n_levels=orb["n_levels"], scale_factor=orb["scale_factor"])
+    return level_inputs(img, fc)
+
+
+def k2_input(vals):
+    """K2's input as `bundle_adjust` passes it: the values [L,G,F] stored
+    feature-major ([L,F,G]) and handed over as an [L,G,F] view."""
+    return vals.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+
+
+def kernel_table(dev, card, img_full, counts):
+    """Step 0 of every kernel redesign: per kernel at the System path's
+    shapes, its launches on that path (`counts`, None when not run), the
+    wrapper-included µs, the device-only µs (CUDA graph; `torch.profiler`
+    beside it), the bound, the one PyTorch call computing the same function
+    (`library`, timed here only) and the plain version. Returns
+    {name: row} with the L = 32 rows for K2 and K3."""
+    import torch
+
+    from dvm_slam_tpu_torch.ops import orb_descriptor, orb_kernel, scatter, scatter_kernel
+
+    rows = {}
+    # K1: the 8 levels of one System frame, summed per frame
+    levels = system_levels(img_full)
+    k1 = dict(wrap=0.0, dev=0.0, prof=0.0, plain=0.0, nbytes=0.0, nops=0.0)
+    for lv, (raw, blur, xy) in enumerate(levels):
+        fn = lambda: orb_kernel.orient_and_describe(raw, blur, xy)  # noqa: E731
+        n = xy.shape[0]
+        wrap, dv = time_ms(fn, 200) * 1e3, device_us(fn)
+        prof = profiler_us(fn, "orb_describe_kernel")
+        plain = time_ms(lambda: orb_descriptor.orient_and_describe(raw, blur, xy), 20) * 1e3
+        k1["wrap"] += wrap
+        k1["dev"] += dv
+        k1["prof"] = None if prof is None or k1["prof"] is None else k1["prof"] + prof
+        k1["plain"] += plain
+        k1["nbytes"] += 4 * (2 * raw.numel() + 2 * n + n) + n * orb_descriptor.DESC_BITS \
+            + orb_descriptor.PATTERN.nbytes
+        k1["nops"] += n * K1_OPS_PER_KEYPOINT
+        print(f"[15] K1 level {lv} {tuple(raw.shape)} N={n}: wrapper {wrap:.2f} us, device "
+              f"{dv:.2f} us (profiler {prof}), twin {plain:.2f} us on {card}")
+    b, by = bound_us(k1["nbytes"], k1["nops"])
+    rows["orb_describe"] = dict(wrap=k1["wrap"], dev=k1["dev"], prof=k1["prof"], bound=b,
+                                by=by, lib=None, lib_dev=None, plain=k1["plain"], per_row=N_LEVELS)
+    print(f"[15] K1 per frame (8 levels at 600x350): wrapper {k1['wrap']:.2f} us, device "
+          f"{k1['dev']:.2f} us (profiler {k1['prof']}), bound {b:.3f} us ({by}: "
+          f"{k1['nbytes'] / 1e6:.3f} MB, {k1['nops'] / 1e6:.2f} Mop), no single PyTorch call, "
+          f"twin {k1['plain']:.2f} us on {card}")
+
+    # K2 and K3 at System's window (L = 32) and the slice-2 and init windows
+    for L in TABLE_LS:
+        vals, pidx, pts_pl, P = ba_inputs(dev, L)
+        G, F = vals.shape[1], vals.shape[2]
+        v = k2_input(vals)
+        ok = (pidx >= 0) & (pidx < P)
+        col = torch.where(ok, pidx, P).to(torch.int64)
+        idx2 = col[:, None, :].expand(L, G, F).contiguous()
+        idx3 = col[:, None, :].expand(L, 3, F).contiguous()
+        pts_pad = torch.cat([pts_pl, torch.zeros((3, 1), device=dev)], 1)
+        lib2 = lambda: torch.zeros((L, G, P + 1), device=dev).scatter_add_(2, idx2, v)  # noqa: E731
+        lib3 = lambda: torch.gather(pts_pad.expand(L, 3, P + 1), 2, idx3)  # noqa: E731
+        k2 = lambda: scatter_kernel.onehot_adjoint(v, pidx, P)  # noqa: E731
+        k3 = lambda: scatter_kernel.onehot_gather(pts_pl, pidx)  # noqa: E731
+        # the yardsticks compute the same function
+        ref2 = scatter.onehot_adjoint_plain(v, pidx, P)
+        d_lib2 = float((lib2()[..., :P] - ref2).abs().max())
+        same3 = torch.equal(lib3(), scatter.onehot_gather_plain(pts_pl, pidx))
+        n_hit = int(ok.sum())
+        for name, fn, lib, plain, nbytes, nops, kname in (
+                ("onehot_adjoint", k2, lib2, lambda: scatter.onehot_adjoint_plain(v, pidx, P),
+                 4 * (L * G * F + L * F + L * G * P), G * n_hit, "onehot_adjoint_kernel"),
+                ("onehot_gather", k3, lib3, lambda: scatter.onehot_gather_plain(pts_pl, pidx),
+                 4 * (3 * P + L * F + L * 3 * F), 0, "onehot_gather_kernel")):
+            wrap, lib_ms = paired_ms([fn, lib], 40)
+            row = dict(wrap=wrap * 1e3, dev=device_us(fn), prof=profiler_us(fn, kname),
+                       lib=lib_ms * 1e3, lib_dev=device_us(lib),
+                       plain=time_ms(plain, 50) * 1e3, per_row=1)
+            row["bound"], row["by"] = bound_us(nbytes, nops)
+            print(f"[15] {name} L={L}: wrapper {row['wrap']:.2f} us, device {row['dev']:.2f} us "
+                  f"(profiler {row['prof']}), bound {row['bound']:.3f} us ({row['by']}: "
+                  f"{nbytes / 1e6:.3f} MB), library {row['lib']:.2f} us (device "
+                  f"{row['lib_dev']:.2f} us), plain {row['plain']:.2f} us on {card}")
+            if L == L_SYSTEM:
+                rows[name] = row
+        print(f"[15] yardsticks at L={L}: zero fill + scatter_add_ within {d_lib2:.3e} of K2's "
+              f"plain version; torch.gather bit-identical to K3's: {same3}")
+        check(d_lib2 <= K2_RTOL * (1.0 + float(ref2.abs().max())) and same3,
+              f"a library yardstick computes another function at L={L}")
+
+    # the redesign rule: first the kernels slower than their library call
+    # (largest factor first), then the rest by time lost per System run
+    for name, row in rows.items():
+        row["launches"] = None if counts is None else counts[name]
+    losers = sorted((n for n, r in rows.items() if r["lib"] is not None and r["wrap"] > r["lib"]),
+                    key=lambda n: -rows[n]["wrap"] / rows[n]["lib"])
+    rest = [n for n in rows if n not in losers]
+    if counts is not None:
+        rest.sort(key=lambda n: -(rows[n]["launches"] / rows[n]["per_row"])
+                  * (rows[n]["wrap"] - rows[n]["bound"]))
+    for n in losers:
+        print(f"[15] rule: {n} loses to its library call by "
+              f"{rows[n]['wrap'] / rows[n]['lib']:.2f}x")
+    for n in rest:
+        lost = (None if counts is None else
+                rows[n]["launches"] / rows[n]["per_row"] * (rows[n]["wrap"] - rows[n]["bound"]))
+        print(f"[15] rule: {n} loses {lost} us per System run above its bound")
+    print(f"[15] rule order: {losers + rest}")
+    return rows
+
+
+def main(kernels_only: bool = False) -> int:
     import torch
 
     # ---- 1. the card --------------------------------------------------
@@ -409,7 +687,7 @@ def main() -> int:
         return 1
     from dvm_slam_tpu_torch.geometry import lie
     from dvm_slam_tpu_torch.mapping import local_mapping, map_state
-    from dvm_slam_tpu_torch.ops import orb_descriptor, orb_kernel, scatter, scatter_kernel
+    from dvm_slam_tpu_torch.ops import orb_descriptor, orb_kernel, scatter_kernel
     from dvm_slam_tpu_torch.tracking import tracker
 
     t_start = time.perf_counter()
@@ -439,7 +717,7 @@ def main() -> int:
     phase_done(2)
 
     # ---- 3. K1 against its twin on every level of frame 0 --------------
-    inputs = level_inputs(imgs[0], cfg_k)
+    inputs = level_inputs(imgs[0], cfg_k.frontend)
     worst_ang, n_diff, n_bits = 0.0, 0, 0
     for lv, (raw, blur, xy) in enumerate(inputs):
         ang_k, desc_k = orb_kernel.orient_and_describe(raw, blur, xy)
@@ -456,6 +734,15 @@ def main() -> int:
     check(worst_ang <= ANGLE_ATOL, f"K1 angle error {worst_ang} > {ANGLE_ATOL}")
     check(bit_frac <= MAX_BIT_FRACTION, f"K1 differing bit fraction {bit_frac} > {MAX_BIT_FRACTION}")
     phase_done(3)
+    if kernels_only:  # phases 7, 8 and 15 only: the kernels, without the slices
+        print(f"[7] K2/K3 built in {rec23['seconds']:.2f} s -> {rec23['path']}")
+        print_ptxas(rec23)
+        check_ba_kernels(dev)
+        phase_done(8)
+        kernel_table(dev, card, imgs_all[0], None)
+        phase_done(15)
+        print(f"total {time.perf_counter() - t_start:.2f} s")
+        return 0
 
     # ---- 4. the slice through the kernel -------------------------------
     orb_kernel.launches = 0
@@ -513,14 +800,6 @@ def main() -> int:
         print(f"[6] make_and_track with {name}: median {med:.2f} ms/frame "
               f"(IQR {q1:.2f}-{q3:.2f}, max {ms.max():.2f}, n={len(ms)}) = "
               f"{len(ms) / ms.sum() * 1e3:.2f} frames/s on {card}")
-    k_ms, t_ms = 0.0, 0.0
-    for lv, (raw, blur, xy) in enumerate(inputs):
-        km = time_ms(lambda: orb_kernel.orient_and_describe(raw, blur, xy), 200)
-        tm = time_ms(lambda: orb_descriptor.orient_and_describe(raw, blur, xy), 50)
-        k_ms, t_ms = k_ms + km, t_ms + tm
-        print(f"[6] level {lv} {tuple(raw.shape)} N={xy.shape[0]}: K1 {km * 1e3:.2f} us, "
-              f"twin {tm * 1e3:.2f} us on {card}")
-    print(f"[6] K1 per frame (8 levels) {k_ms * 1e3:.2f} us, twin {t_ms * 1e3:.2f} us on {card}")
 
     # outputs of the final state are finite and shaped as the map says
     check(m.pt_pos.shape == (8192, 3) and bool(torch.isfinite(m.pt_pos).all()), "map points")
@@ -533,26 +812,7 @@ def main() -> int:
     phase_done(7)
 
     # ---- 8. K2 and K3 against their plain versions at BA's shapes --------
-    # at the slice-2 window (L = 20) and at System's default one (L = 32)
-    k2_err = k3_err = 0.0
-    for L in (BA_SHAPES["L"], L_SYSTEM):
-        vals, pidx, pts_pl, P = ba_inputs(dev, L)
-        adj_k = scatter_kernel.onehot_adjoint(vals, pidx, P)
-        adj_p = scatter.onehot_adjoint_plain(vals, pidx, P)
-        gat_k = scatter_kernel.onehot_gather(pts_pl, pidx)
-        gat_p = scatter.onehot_gather_plain(pts_pl, pidx)
-        torch.cuda.synchronize()
-        e2 = float((adj_k - adj_p).abs().max())
-        k2_bound = K2_RTOL * (1.0 + float(adj_p.abs().max()))
-        e3 = float((gat_k - gat_p).abs().max())
-        print(f"[8] K2 {tuple(vals.shape)} -> {tuple(adj_k.shape)}: max abs err {e2:.3e} "
-              f"(bound {k2_bound:.3e})")
-        print(f"[8] K3 {tuple(pts_pl.shape)} x {tuple(pidx.shape)} -> {tuple(gat_k.shape)}: "
-              f"bit-identical {torch.equal(gat_k, gat_p)}, max abs err {e3:.3e}")
-        check(e2 <= k2_bound, f"K2 error {e2} > {k2_bound} at L={L}")
-        check(torch.equal(gat_k, gat_p), f"K3 differs from its plain version at L={L}")
-        k2_err, k3_err = max(k2_err, e2), max(k3_err, e3)
-    vals, pidx, pts_pl, P = ba_inputs(dev)
+    k2_err, k3_err = check_ba_kernels(dev)
     phase_done(8)
 
     # ---- 9. slice 2 through the kernels -----------------------------------
@@ -649,12 +909,6 @@ def main() -> int:
             iters=MAPPER[6], n_levels=N_LEVELS, scale_factor=MAPPER[2], use_kernel=uk), 10)
         print(f"[11] local_ba with {name}: {ba_ms[name]:.2f} ms per call (10 calls, CUDA "
               f"events) on {card}")
-    k2_ms = time_ms(lambda: scatter_kernel.onehot_adjoint(vals, pidx, P), 200)
-    k2p_ms = time_ms(lambda: scatter.onehot_adjoint_plain(vals, pidx, P), 50)
-    k3_ms = time_ms(lambda: scatter_kernel.onehot_gather(pts_pl, pidx), 200)
-    k3p_ms = time_ms(lambda: scatter.onehot_gather_plain(pts_pl, pidx), 200)
-    print(f"[11] K2 {k2_ms * 1e3:.2f} us per call, plain {k2p_ms * 1e3:.2f} us on {card}")
-    print(f"[11] K3 {k3_ms * 1e3:.2f} us per call, plain {k3p_ms * 1e3:.2f} us on {card}")
     phase_done(11)
 
     # ---- 12. slice 3: System.track_monocular from frame 0 through the kernels
@@ -756,25 +1010,22 @@ def main() -> int:
         p50, p90 = np.percentile(ms, [50, 90])
         print(f"[14] track_monocular with {name}, {kind} calls: median {p50:.2f} ms, p90 "
               f"{p90:.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
-    v32, i32, pts32, P = ba_inputs(dev, L_SYSTEM)
-    k2_32 = time_ms(lambda: scatter_kernel.onehot_adjoint(v32, i32, P), 200)
-    k2p_32 = time_ms(lambda: scatter.onehot_adjoint_plain(v32, i32, P), 50)
-    k3_32 = time_ms(lambda: scatter_kernel.onehot_gather(pts32, i32), 200)
-    k3p_32 = time_ms(lambda: scatter.onehot_gather_plain(pts32, i32), 200)
-    print(f"[14] K2 at L={L_SYSTEM} {k2_32 * 1e3:.2f} us per call, plain {k2p_32 * 1e3:.2f} us "
-          f"on {card}")
-    print(f"[14] K3 at L={L_SYSTEM} {k3_32 * 1e3:.2f} us per call, plain {k3p_32 * 1e3:.2f} us "
-          f"on {card}")
     phase_done(14)
+
+    # ---- 15. every kernel at the System path's shapes: its launches there,
+    # wrapper-included and device-only time, bound, library call, plain version
+    table = kernel_table(dev, card, imgs_all[0], counts3)
+    phase_done(15)
     print(f"total {time.perf_counter() - t_start:.2f} s")
 
-    measured = {"orb_describe": (worst_ang, k_ms, t_ms),
-                "onehot_adjoint": (k2_err, k2_ms, k2p_ms),
-                "onehot_gather": (k3_err, k3_ms, k3p_ms)}
+    errs = {"orb_describe": worst_ang, "onehot_adjoint": k2_err, "onehot_gather": k3_err}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": counts3[name], "max_abs_err": measured[name][0],
-        "ms": measured[name][1], "plain_ms": measured[name][2],
+        "launches": counts3[name], "max_abs_err": errs[name],
+        "ms": table[name]["wrap"] / 1e3, "plain_ms": table[name]["plain"] / 1e3,
+        "bound_ms": table[name]["bound"] / 1e3, "bound_by": table[name]["by"],
+        "library_ms": None if table[name]["lib"] is None else table[name]["lib"] / 1e3,
+        "bound_us": table[name]["bound"], "device_us": table[name]["dev"],
     } for name, (src, tpu) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -784,4 +1035,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(kernels_only="--kernels-only" in sys.argv[1:]))

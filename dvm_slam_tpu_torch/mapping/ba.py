@@ -218,10 +218,12 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
         WV = (Juc[:, None] * Puc[None, :] + Jvc[:, None] * Pvc[None, :]) * w[None, None]
 
         # one adjoint scatter per step over the 30 stacked value planes
-        # (HppV 9 | bpV 3 | WV 18)
-        vals = torch.cat([HppV.reshape(9, L, F), bpV, WV.reshape(18, L, F)], 0)
-        fused = scatter.onehot_adjoint(vals.permute(1, 0, 2).contiguous(), pidx_adj, P,
-                                       use_kernel)                 # [L,30,P]
+        # (HppV 9 | bpV 3 | WV 18), stored feature-major [L,F,30] (a
+        # feature's 30 values in one 128-byte line for K2's gather) and
+        # handed over as an [L,30,F] view
+        vals = torch.cat([HppV.reshape(9, L, F).permute(1, 2, 0), bpV.permute(1, 2, 0),
+                          WV.reshape(18, L, F).permute(1, 2, 0)], -1)
+        fused = scatter.onehot_adjoint(vals.permute(0, 2, 1), pidx_adj, P, use_kernel)  # [L,30,P]
         HppP = torch.sum(fused[:, :9], dim=0).reshape(3, 3, P)
         bpP = torch.sum(fused[:, 9:12], dim=0)                    # [3,P]
         W = fused[:, 12:].reshape(L, 6, 3, P)

@@ -36,6 +36,20 @@ def onehot_adjoint_plain(vals, pidx, n_cols: int):
     return torch.bmm(vals, oh)
 
 
+def onehot_adjoint_ordered(vals, pidx, n_cols: int):
+    """K2's order of addition in plain PyTorch: every output starts at 0 and
+    adds its features in ascending f, one feature per step (a row holds one
+    index per f, so no step adds twice to one element). Bit-identical to the
+    kernel; a check of the kernel, not a path of the port."""
+    L, G, F = vals.shape
+    out = vals.new_zeros((L, G, n_cols + 1))                      # column n_cols: no point
+    col = torch.where((pidx >= 0) & (pidx < n_cols), pidx, n_cols).to(torch.int64)
+    rows = torch.arange(L, device=vals.device)
+    for f in range(F):
+        out[rows, :, col[:, f]] += vals[:, :, f]
+    return out[..., :n_cols]
+
+
 def onehot_gather_plain(pts_pl, pidx):
     """[G,P] f32 plane-major table, [L,F] int -> [L,G,F] f32."""
     P = pts_pl.shape[1]
