@@ -1,140 +1,205 @@
-// Fused ORB orientation + steered rBRIEF, one CTA per keypoint (Hopper, sm_90a).
+// Fused ORB orientation + steered rBRIEF for every pyramid level of a frame
+// in one launch, one warp per keypoint (Hopper, sm_90a).
 //
-// Replaces the Pallas TPU kernel dvm_slam_tpu/ops/pallas_orb.py::_kernel
-// (wrapper `orient_and_describe`). It computes what the XLA reference
-// dvm_slam_tpu/ops/orb_descriptor.py::orient_and_describe computes:
+// Replaces the Pallas TPU kernel dvm_slam_tpu/ops/pallas_orb.py:55 `_kernel`
+// (wrapper `orient_and_describe`), which runs once per pyramid level. It
+// computes what the XLA reference dvm_slam_tpu/ops/orb_descriptor.py::
+// orient_and_describe computes, for each level in turn:
 //   * the intensity-centroid moments m01, m10 over the radius-15 circular mask
-//     of the raw level, around the rounded centre clamped to
-//     [15, W-16] x [15, H-16]; angle = atan2(m01, m10);
+//     (x^2 + y^2 <= 226) of the raw level, around the rounded centre clamped
+//     to [15, W-16] x [15, H-16]; angle = atan2(m01, m10);
 //   * 256 steered BRIEF tests on the blurred level: pattern offsets rotated by
-//     (ca, sa) = (m10, m01) / |m|, rounded half to even, samples clamped to the
-//     image edge; bit = v1 < v2.
+//     (ca, sa) = (m10, m01) / |m|, rounded half to even, samples taken around
+//     the UNCLAMPED rounded centre and clamped to the image edge; bit = v1 < v2.
 // The TPU kernel's one-hot row/column matmuls and (8,128)-aligned DMA windows
 // exist only for Mosaic; none of that is carried over.
 //
-// What bounds it on this card: latency and random shared-memory reads. Each
-// keypoint reads ~2.4 KB (a 31x31 raw and a 39x39 blurred window) and writes
-// 260 B, so the whole frame moves ~3 MB — nothing for HBM. One CTA per
-// keypoint stages both windows in shared memory (~12 KB with the reduction
-// buffers), so the 512 data-dependent samples of the descriptor never leave
-// the SM.
+// What bounds it on this card: latency, not bytes. A frame of 8 levels at
+// 600x350 (1,250 keypoint slots) moves ~5.5 MB, under 2 us of HBM time, and
+// the images sit in L2. A launch per level costs ~4 us of launch and tail
+// each, and a 256-thread block per keypoint would sum its moments through 8
+// barrier-separated tree steps. So:
+//   * one launch per frame: the levels' pointers, sizes and keypoint offsets
+//     travel by value in a kernel parameter (no upload, no sync), and each
+//     keypoint finds its level from the offsets;
+//   * one warp per keypoint, 4 per block, so a frame's keypoints fill the 132
+//     SMs in a single wave; no block-wide barrier and no shared memory;
+//   * the raw window is read straight from global memory (each element once,
+//     32 consecutive elements per load), and so are the 512 data-dependent
+//     BRIEF samples of the blurred level: they fall in a 37x37 window that L1
+//     holds, and staging the 39x39 window in shared memory first cost more
+//     (1,521 loads a keypoint instead of 512) than it saved.
 //
-// Bit parity with the plain PyTorch twin (ops/orb_descriptor.py):
-//   * thread t sums patch elements t, t+256, t+512, t+768 in turn, then a
-//     pairwise tree halves the 256 partial sums — the twin's
-//     `_thread_tree_sum` performs the same additions in the same order;
+// Bit parity with the plain PyTorch twin (ops/orb_descriptor.py), which sums
+// the moments in the order of 256 threads, one per descriptor bit:
+//   * lane l plays the threads t = l + 32j, j = 0..7: it sums patch
+//     elements t, t+256, t+512, t+768 in turn; the tree steps of width 128,
+//     64 and 32 pair j with j+4, j+2 and j+1 in registers, and the steps of
+//     width 16..1 are __shfl_down_sync. These are the additions of the twin's
+//     `_thread_tree_sum`, in its order;
 //   * this file is compiled with --fmad=false, so a*b+c is never contracted
 //     into an FMA (that would move the rotated offsets across .5 boundaries);
 //   * rintf rounds half to even like torch.round (roundf would not).
+// Lane l runs BRIEF tests l + 32j, so each of its 8 byte stores is part of one
+// 32-byte coalesced store of the warp.
 //
-// C interface (ctypes): returns cudaGetLastError() after the launch.
+// C interface (ctypes): returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a level count outside [1, 16].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kMaxLevels = 16;
 constexpr int kHalf = 15;                    // orientation patch radius
 constexpr int kPatch = 2 * kHalf + 1;        // 31
-constexpr int kBHalf = 19;                   // BRIEF window radius (13*sqrt(2) < 19)
-constexpr int kBPatch = 2 * kBHalf + 1;      // 39
-constexpr int kThreads = 256;                // one thread per descriptor bit
+constexpr int kBits = 256;                   // descriptor bits = threads of the twin's order
+constexpr int kLanes = 32;
+constexpr int kVirt = kBits / kLanes;        // 8 virtual threads per lane
 constexpr int kRawN = kPatch * kPatch;       // 961
-constexpr int kSlots = (kRawN + kThreads - 1) / kThreads;  // 4
+constexpr int kSlots = (kRawN + kBits - 1) / kBits;  // 4
+constexpr int kWarps = 4;                    // keypoints per block
+constexpr unsigned kFull = 0xffffffffu;
+
+struct LevelTable {
+  const float* raw[kMaxLevels];
+  const float* blur[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int start[kMaxLevels + 1];  // keypoint k lies on level lv iff start[lv] <= k < start[lv+1]
+  int n_levels;
+};
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-orb_describe_kernel(const float* __restrict__ raw, const float* __restrict__ blur,
-                    const float* __restrict__ xy, const int* __restrict__ pattern,
-                    float* __restrict__ angle, uint8_t* __restrict__ desc,
-                    int h, int w) {
-  __shared__ float s_raw[kRawN];
-  __shared__ float s_blur[kBPatch * kBPatch];
-  __shared__ float s01[kThreads];
-  __shared__ float s10[kThreads];
+__global__ void __launch_bounds__(kWarps * kLanes)
+orb_describe_levels_kernel(const LevelTable table, const float* __restrict__ xy,
+                           const int4* __restrict__ pattern, float* __restrict__ angle,
+                           uint8_t* __restrict__ desc, int n) {
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int k = blockIdx.x * kWarps + warp;
+  if (k >= n) return;  // whole warps leave; only warp-level syncs follow
 
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
+  // the keypoint's level: the last level whose range starts at or before k
+  // (empty levels are passed over); fields picked with constant indices so
+  // the table stays in parameter space
+  int lv = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i) lv += (i < table.n_levels && table.start[i] <= k) ? 1 : 0;
+  const float* raw = table.raw[0];
+  const float* blur = table.blur[0];
+  int h = table.h[0], w = table.w[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i) {
+    if (lv == i) {
+      raw = table.raw[i];
+      blur = table.blur[i];
+      h = table.h[i];
+      w = table.w[i];
+    }
+  }
+
   const int cx = static_cast<int>(rintf(xy[2 * k]));
   const int cy = static_cast<int>(rintf(xy[2 * k + 1]));
+
+  // intensity-centroid moments over the circular mask; the clamped window
+  // lies inside the level (the wrapper takes levels of at least 31x31)
   const int mcx = clampi(cx, kHalf, w - kHalf - 1);
   const int mcy = clampi(cy, kHalf, h - kHalf - 1);
-
-  // stage the windows; edge-clamped reads == the reference's index clipping
-  for (int i = t; i < kRawN; i += kThreads) {
-    const int r = clampi(mcy + i / kPatch - kHalf, 0, h - 1);
-    const int c = clampi(mcx + i % kPatch - kHalf, 0, w - 1);
-    s_raw[i] = raw[r * w + c];
-  }
-  for (int i = t; i < kBPatch * kBPatch; i += kThreads) {
-    const int r = clampi(cy + i / kBPatch - kBHalf, 0, h - 1);
-    const int c = clampi(cx + i % kBPatch - kBHalf, 0, w - 1);
-    s_blur[i] = blur[r * w + c];
-  }
-  __syncthreads();
-
-  // intensity-centroid moments over the circular mask
-  float a01 = 0.f, a10 = 0.f;
+  const float* win = raw + (mcy - kHalf) * w + (mcx - kHalf);
+  float a01[kVirt], a10[kVirt];
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int i = t + s * kThreads;
-    if (i < kRawN) {
-      const int yy = i / kPatch - kHalf;
-      const int xx = i % kPatch - kHalf;
-      const float m = (xx * xx + yy * yy <= kHalf * kHalf + 1) ? 1.f : 0.f;
-      const float pm = s_raw[i] * m;
-      a01 = a01 + pm * static_cast<float>(yy);
-      a10 = a10 + pm * static_cast<float>(xx);
+  for (int j = 0; j < kVirt; ++j) {
+    float s01 = 0.f, s10 = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = lane + kLanes * j + kBits * s;
+      if (i < kRawN) {
+        const int yy = i / kPatch - kHalf;
+        const int xx = i % kPatch - kHalf;
+        const float m = (xx * xx + yy * yy <= kHalf * kHalf + 1) ? 1.f : 0.f;
+        const float pm = win[(yy + kHalf) * w + xx + kHalf] * m;
+        s01 = s01 + pm * static_cast<float>(yy);
+        s10 = s10 + pm * static_cast<float>(xx);
+      }
+    }
+    a01[j] = s01;
+    a10[j] = s10;
+  }
+  // tree steps of width 128, 64, 32: virtual thread t = l + 32j takes t + width
+#pragma unroll
+  for (int half = kVirt / 2; half > 0; half >>= 1) {
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      a01[j] = a01[j] + a01[j + half];
+      a10[j] = a10[j] + a10[j + half];
     }
   }
-  s01[t] = a01;
-  s10[t] = a10;
-  __syncthreads();
-  for (int width = kThreads / 2; width > 0; width >>= 1) {
-    if (t < width) {
-      s01[t] = s01[t] + s01[t + width];
-      s10[t] = s10[t] + s10[t + width];
-    }
-    __syncthreads();
+  // widths 16..1 across lanes; lane 0 ends with the sum
+  float m01 = a01[0], m10 = a10[0];
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    m01 = m01 + __shfl_down_sync(kFull, m01, off);
+    m10 = m10 + __shfl_down_sync(kFull, m10, off);
   }
-  const float m01 = s01[0];
-  const float m10 = s10[0];
-  if (t == 0) angle[k] = atan2f(m01, m10);
+  m01 = __shfl_sync(kFull, m01, 0);
+  m10 = __shfl_sync(kFull, m10, 0);
+  if (lane == 0) angle[k] = atan2f(m01, m10);
 
-  // steering direction straight from the moments (every thread, same value)
+  // steering direction straight from the moments (every lane, same value)
   const float rlen = sqrtf(m01 * m01 + m10 * m10);
   const bool safe = rlen > 1e-9f;
   const float inv = safe ? 1.f / rlen : 0.f;
   const float ca = safe ? m10 * inv : 1.f;
   const float sa = safe ? m01 * inv : 0.f;
 
-  // thread t: BRIEF test t
-  const float px1 = static_cast<float>(pattern[4 * t + 0]);
-  const float py1 = static_cast<float>(pattern[4 * t + 1]);
-  const float px2 = static_cast<float>(pattern[4 * t + 2]);
-  const float py2 = static_cast<float>(pattern[4 * t + 3]);
-  const int rx1 = clampi(static_cast<int>(rintf(px1 * ca - py1 * sa)), -kBHalf, kBHalf);
-  const int ry1 = clampi(static_cast<int>(rintf(px1 * sa + py1 * ca)), -kBHalf, kBHalf);
-  const int rx2 = clampi(static_cast<int>(rintf(px2 * ca - py2 * sa)), -kBHalf, kBHalf);
-  const int ry2 = clampi(static_cast<int>(rintf(px2 * sa + py2 * ca)), -kBHalf, kBHalf);
-  const float v1 = s_blur[(ry1 + kBHalf) * kBPatch + rx1 + kBHalf];
-  const float v2 = s_blur[(ry2 + kBHalf) * kBPatch + rx2 + kBHalf];
-  desc[static_cast<int64_t>(k) * kThreads + t] = v1 < v2 ? 1 : 0;
+  uint8_t* out = desc + static_cast<int64_t>(k) * kBits;
+#pragma unroll
+  for (int j = 0; j < kVirt; ++j) {
+    const int b = lane + kLanes * j;
+    const int4 q = pattern[b];
+    const float px1 = static_cast<float>(q.x), py1 = static_cast<float>(q.y);
+    const float px2 = static_cast<float>(q.z), py2 = static_cast<float>(q.w);
+    // row offset = round(x sin + y cos), column offset = round(x cos - y sin),
+    // each sample clamped to the image around the unclamped centre
+    const int rx1 = static_cast<int>(rintf(px1 * ca - py1 * sa));
+    const int ry1 = static_cast<int>(rintf(px1 * sa + py1 * ca));
+    const int rx2 = static_cast<int>(rintf(px2 * ca - py2 * sa));
+    const int ry2 = static_cast<int>(rintf(px2 * sa + py2 * ca));
+    const float v1 = blur[clampi(cy + ry1, 0, h - 1) * w + clampi(cx + rx1, 0, w - 1)];
+    const float v2 = blur[clampi(cy + ry2, 0, h - 1) * w + clampi(cx + rx2, 0, w - 1)];
+    out[b] = v1 < v2 ? 1 : 0;
+  }
 }
 
 }  // namespace
 
-extern "C" int orb_describe(const void* raw, const void* blur, const void* xy,
-                            const void* pattern, void* angle, void* desc,
-                            int n, int h, int w, void* stream) {
+// `table` holds 5 * n_levels + 1 values: the raw pointers, the
+// blurred pointers, the heights, the widths, then the keypoint offsets
+// (offsets[0] = 0, offsets[n_levels] = n). xy is [n,2] f32, pattern [256,4]
+// i32, angle [n] f32 and desc [n,256] u8, all contiguous on one device.
+extern "C" int orb_describe_levels(const long long* table, int n_levels, const void* xy,
+                                   const void* pattern, void* angle, void* desc, int n,
+                                   void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  LevelTable t = {};
+  for (int i = 0; i < n_levels; ++i) {
+    t.raw[i] = reinterpret_cast<const float*>(table[i]);
+    t.blur[i] = reinterpret_cast<const float*>(table[n_levels + i]);
+    t.h[i] = static_cast<int>(table[2 * n_levels + i]);
+    t.w[i] = static_cast<int>(table[3 * n_levels + i]);
+  }
+  for (int i = 0; i <= n_levels; ++i) t.start[i] = static_cast<int>(table[4 * n_levels + i]);
+  t.n_levels = n_levels;
   if (n > 0) {
-    orb_describe_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(raw), static_cast<const float*>(blur),
-        static_cast<const float*>(xy), static_cast<const int*>(pattern),
-        static_cast<float*>(angle), static_cast<uint8_t*>(desc), h, w);
+    const int blocks = (n + kWarps - 1) / kWarps;
+    orb_describe_levels_kernel<<<blocks, kWarps * kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+        t, static_cast<const float*>(xy), static_cast<const int4*>(pattern),
+        static_cast<float*>(angle), static_cast<uint8_t*>(desc), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,8 @@ descriptors; invalid slots carry `valid=False`.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import NamedTuple, Optional
 
 import torch
@@ -55,6 +57,11 @@ class FrontendConfig:
         return sum(self.level_budgets)
 
     @property
+    def level_offsets(self):
+        """Level l's keypoint slots are [level_offsets[l], level_offsets[l+1])."""
+        return tuple(itertools.accumulate(self.level_budgets, initial=0))
+
+    @property
     def sigma2(self):
         """Per-level variance of keypoint position, `mvLevelSigma2`."""
         return tuple(s * s for s in self.scales)
@@ -80,28 +87,43 @@ class Frame(NamedTuple):
         return self.xy.shape[-2]
 
 
-def _orient_and_describe(im, blur, xy, use_kernel):
+def _orient_and_describe(raws, blurs, xy, offsets, use_kernel):
     if use_kernel is False:
-        return orb_descriptor.orient_and_describe(im, blur, xy)
-    if use_kernel and im.device.type != "cuda":
-        raise ValueError(f"use_kernel=True needs CUDA tensors, got {im.device}")
-    return orb_kernel.orient_and_describe(im, blur, xy)
+        return orb_descriptor.orient_and_describe_levels(raws, blurs, xy, offsets)
+    if use_kernel and xy.device.type != "cuda":
+        raise ValueError(f"use_kernel=True needs CUDA tensors, got {xy.device}")
+    return orb_kernel.orient_and_describe_levels(raws, blurs, xy, offsets)
+
+
+@functools.lru_cache(maxsize=16)
+def _slot_consts(budgets, scales, device):
+    """(level [F] int32, scale [F,1] float32) of every keypoint slot, on
+    `device` once: an upload per frame would make the host wait."""
+    lvl = torch.cat([torch.full((b,), lv, dtype=torch.int32) for lv, b in enumerate(budgets)])
+    scale = torch.cat([torch.full((b, 1), s, dtype=torch.float32) for b, s in zip(budgets, scales)])
+    return lvl.to(device), scale.to(device)
 
 
 def extract(img, config: FrontendConfig):
     """Grayscale [H,W] (0..255, any dtype) -> Frame with keypoints in RAW
-    px; `make_frame` undistorts them."""
+    px; `make_frame` undistorts them. FAST and the blur run per level, then
+    one K1 call describes the whole frame."""
     img = img.to(torch.float32)
     levels = pyramid.build_pyramid(img, config.n_levels, config.scale_factor)
-    outs = []
-    for lv, (im, budget, s) in enumerate(zip(levels, config.level_budgets, config.scales)):
+    raws, blurs, xys, scores, valids = [], [], [], [], []
+    for im, budget in zip(levels, config.level_budgets):
         xy, score, valid = fast.detect_level(im, config.ini_th, config.min_th, config.cell, budget)
-        blur = pyramid.gaussian_blur(im)
-        ang, desc = _orient_and_describe(im.contiguous(), blur.contiguous(), xy, config.use_kernel)
-        lvl = torch.full((budget,), lv, dtype=torch.int32, device=img.device)
-        outs.append((xy * s, lvl, ang, score, desc, valid))
-    xy, lvl, ang, score, desc, valid = (torch.cat(c) for c in zip(*outs))
-    return Frame(xy=xy, xy_raw=xy, level=lvl, angle=ang, response=score, desc=desc, valid=valid)
+        raws.append(im.contiguous())
+        blurs.append(pyramid.gaussian_blur(im).contiguous())
+        xys.append(xy)
+        scores.append(score)
+        valids.append(valid)
+    xy_lv = torch.cat(xys)
+    ang, desc = _orient_and_describe(raws, blurs, xy_lv, config.level_offsets, config.use_kernel)
+    lvl, scale = _slot_consts(config.level_budgets, config.scales, img.device)
+    xy = xy_lv * scale  # level px -> level-0 px, the f32 product `xy * s` of each level
+    return Frame(xy=xy, xy_raw=xy, level=lvl.clone(), angle=ang, response=torch.cat(scores),
+                 desc=desc, valid=torch.cat(valids))
 
 
 def _undistort_frame(f: Frame, K, dist):

@@ -4,13 +4,15 @@ Port of `dvm_slam_tpu/ops/orb_descriptor.py`. The sampling pattern is the
 same numpy recipe from the same seed, so both packages test the same pixel
 pairs. Descriptors stay unpacked: [N, 256] uint8 in {0,1}.
 
-`orient_and_describe` here is the plain PyTorch twin of the CUDA kernel in
-`ops/orb_kernel.py` (`csrc/orb_describe.cu`). Twin and kernel compute every
-float in the same order, so on the card they agree bit for bit:
+`orient_and_describe` (one level) and `orient_and_describe_levels` (a frame)
+here are the plain PyTorch twin of the CUDA kernel in `ops/orb_kernel.py`
+(`csrc/orb_describe.cu`). Twin and kernel compute every float in the same
+order, so on the card they agree bit for bit:
 
-* the moments are summed as the kernel's 256 threads sum them: thread t adds
-  the patch elements t, t+256, t+512, t+768 in turn, then a pairwise tree
-  halves the 256 partial sums (`_thread_tree_sum`);
+* the moments are summed in the order of 256 threads: thread t adds the
+  patch elements t, t+256, t+512, t+768 in turn, then a pairwise tree halves
+  the 256 partial sums (`_thread_tree_sum`); the kernel's warp plays the 256
+  threads, lane l as threads l + 32j;
 * every multiply and add is rounded on its own (eager PyTorch fuses nothing;
   the kernel is compiled without FMA contraction);
 * rotated offsets round half to even (`torch.round`, `rintf` in CUDA).
@@ -30,7 +32,7 @@ import torch
 PATCH_SIZE = 31
 HALF_PATCH = 15
 DESC_BITS = 256
-THREADS = 256  # CUDA threads per keypoint in the kernel = descriptor bits
+THREADS = 256  # threads of the moments' summation order = descriptor bits
 
 _PATTERN_SEED = 20240131  # the reference's framework-wide seed
 
@@ -106,7 +108,7 @@ def moments(img, xy):
     """Intensity-centroid moments (m01, m10) per keypoint (`IC_Angle`).
 
     img: raw (unblurred) pyramid level [H,W]; xy: [N,2] level coords."""
-    patches = _gather_patches(img, xy, PATCH_SIZE).reshape(xy.shape[0], -1)
+    patches = _gather_patches(img, xy, PATCH_SIZE).reshape(xy.shape[0], PATCH_SIZE * PATCH_SIZE)
     _, mask, ys, xs = _consts_on(img.device, img.dtype)
     pm = patches * mask
     return _thread_tree_sum(pm * ys), _thread_tree_sum(pm * xs)
@@ -148,7 +150,17 @@ def descriptors(img_blur, xy, ca, sa):
 
 
 def orient_and_describe(img_raw, img_blur, xy):
-    """Plain twin of the K1 kernel: (angle [N] f32, desc [N,256] uint8)."""
+    """Plain twin of the K1 kernel on one level: (angle [N] f32, desc [N,256]
+    uint8)."""
     m01, m10 = moments(img_raw, xy)
     ca, sa = _dir_from_moments(m01, m10)
     return torch.atan2(m01, m10), descriptors(img_blur, xy, ca, sa)
+
+
+def orient_and_describe_levels(raws, blurs, xy, offsets):
+    """Plain twin of the K1 kernel on a whole frame: level l's keypoints are
+    `xy[offsets[l]:offsets[l+1]]` on `raws[l]` / `blurs[l]`. Returns the
+    frame's (angle [F] f32, desc [F,256] uint8), levels in order."""
+    outs = [orient_and_describe(raw, blur, xy[a:b])
+            for raw, blur, a, b in zip(raws, blurs, offsets[:-1], offsets[1:])]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])

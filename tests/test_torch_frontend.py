@@ -178,6 +178,194 @@ class TestOrbTwin:
         np.testing.assert_array_equal(desc_w.numpy(), desc_t.numpy())
 
 
+def _frame_levels(img, flat_level=2, n_levels=4, n_features=96):
+    """A frame's K1 inputs as `extract` makes them, numpy in: the pyramid's
+    level images and blurs, the slots `detect_level` fills on each; level
+    `flat_level` keeps the slots `detect_level` leaves on a flat image, so
+    none is valid. Returns (raws, blurs, xy per level)."""
+    budgets = jex.FrontendConfig(height=img.shape[0], width=img.shape[1], n_features=n_features,
+                                 n_levels=n_levels).level_budgets
+    raws, blurs, xys = [], [], []
+    for lv, (im, b) in enumerate(zip(jpyr.build_pyramid(jnp.asarray(img), n_levels, 1.2), budgets)):
+        det = jnp.full_like(im, 100.0) if lv == flat_level else im
+        xy, _, valid = jfast.detect_level(det, 20.0, 7.0, 35, b)
+        assert bool(jnp.any(valid)) == (lv != flat_level)
+        raws.append(np.asarray(im))
+        blurs.append(np.asarray(jpyr.gaussian_blur(im)))
+        xys.append(np.asarray(xy))
+    return raws, blurs, xys
+
+
+# Levels of odd sizes down to the 31 rows K1 takes; level 1 gets only the
+# invalid slots of a flat image, level 3 no slot at all
+ADV_SHAPES = ((97, 131), (81, 109), (57, 75), (45, 63), (31, 37))
+
+
+def _adversarial_levels():
+    """K1's hardest small frame from numpy seed 11: noise levels of odd
+    sizes with the slots `detect_level` fills (invalid ones may lie in the
+    padding past the image), then the corners, the detection border, half
+    pixels (rounded to even) and points outside the image, where the moment
+    centre and the BRIEF samples are clamped. Returns (raws, blurs, xy per
+    level) as numpy."""
+    rng = np.random.RandomState(11)
+    raws, blurs, xys = [], [], []
+    for lv, (h, w) in enumerate(ADV_SHAPES):
+        im = (rng.rand(h, w) * 255).astype(np.float32)
+        if lv == 1:
+            xy = np.asarray(jfast.detect_level(jnp.full((h, w), 100.0), 20.0, 7.0, 35, 24)[0])
+        elif lv == 3:
+            xy = np.zeros((0, 2), np.float32)
+        else:
+            det = np.asarray(jfast.detect_level(jnp.asarray(im), 20.0, 7.0, 35, 40)[0])
+            edge = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [15, 15], [16, 16],
+                             [w - 16, h - 16], [w - 17, h - 17], [15.5, 16.5], [16.5, 15.5],
+                             [w - 16.5, h - 15.5], [w / 2 + 0.5, h / 2 - 0.5], [-3.2, -0.5],
+                             [w + 20, h + 7], [w + 40, -30]], np.float32)
+            xy = np.concatenate([det, edge])
+        raws.append(im)
+        blurs.append(np.asarray(jpyr.gaussian_blur(jnp.asarray(im))))
+        xys.append(xy)
+    return raws, blurs, xys
+
+
+def _offsets(xys):
+    return tuple(int(o) for o in np.cumsum([0] + [len(x) for x in xys]))
+
+
+def _levels_to(raws, blurs, xys, dev=torch.device("cpu")):
+    """The per-level numpy arrays as the K1 wrapper's arguments on `dev`."""
+    return ([_t(r).to(dev) for r in raws], [_t(b).to(dev) for b in blurs],
+            _t(np.concatenate(xys)).to(dev), _offsets(xys))
+
+
+class TestOrbLevels:
+    """The whole-frame K1 call: the plain version against the per-level twin
+    and the JAX package, the wrapper on CPU tensors, and the level table."""
+
+    @pytest.mark.parametrize("kind", ["random", "rendered", "adversarial"])
+    def test_levels_twin_matches_per_level_and_jax(self, images, kind):
+        """The frame's (angle, desc) are the per-level twin's, concatenated,
+        exactly; against the JAX package per level, angles atol 2e-3
+        (moments summed in another order) and descriptor bits identical."""
+        raws, blurs, xys = _adversarial_levels() if kind == "adversarial" \
+            else _frame_levels(images[kind])
+        ang, desc = tod.orient_and_describe_levels(*_levels_to(raws, blurs, xys))
+        offs = _offsets(xys)
+        assert ang.shape == (offs[-1],) and desc.shape == (offs[-1], tod.DESC_BITS)
+        for lv, (raw, blur, xy) in enumerate(zip(raws, blurs, xys)):
+            a, b = offs[lv], offs[lv + 1]
+            ang_t, desc_t = tod.orient_and_describe(_t(raw), _t(blur), _t(xy))
+            assert torch.equal(ang[a:b], ang_t) and torch.equal(desc[a:b], desc_t)
+            if b == a:
+                continue
+            ang_j, desc_j = jod.orient_and_describe(jnp.asarray(raw), jnp.asarray(blur),
+                                                    jnp.asarray(xy))
+            np.testing.assert_allclose(ang[a:b].numpy(), np.asarray(ang_j), atol=2e-3)
+            np.testing.assert_array_equal(desc[a:b].numpy(), np.asarray(desc_j))
+
+    def test_wrapper_runs_plain_levels_on_cpu(self, images):
+        args = _levels_to(*_frame_levels(images["random"]))
+        before = orb_kernel.launches
+        ang_w, desc_w = orb_kernel.orient_and_describe_levels(*args)
+        ang_p, desc_p = tod.orient_and_describe_levels(*args)
+        assert orb_kernel.launches == before  # no kernel on the CPU
+        assert torch.equal(ang_w, ang_p) and torch.equal(desc_w, desc_p)
+
+    def test_level_table_layout(self, images):
+        """Raw pointers, blurred pointers, heights, widths, then offsets."""
+        raws, blurs, xy, offs = _levels_to(*_frame_levels(images["random"]))
+        table = list(orb_kernel.level_table(raws, blurs, xy, offs))
+        n = len(raws)
+        assert table[:n] == [r.data_ptr() for r in raws]
+        assert table[n:2 * n] == [b.data_ptr() for b in blurs]
+        assert table[2 * n:4 * n] == [r.shape[0] for r in raws] + [r.shape[1] for r in raws]
+        assert table[4 * n:] == list(offs)
+
+    def test_level_table_takes_sixteen_levels(self):
+        im = torch.zeros((31, 33))
+        xy = torch.zeros((16, 2))
+        table = orb_kernel.level_table([im] * 16, [im] * 16, xy, tuple(range(17)))
+        assert len(table) == 5 * 16 + 1
+
+    @pytest.mark.parametrize("bad, error, match", [
+        ("17 levels", ValueError, "1 to 16 levels"),
+        ("no level", ValueError, "1 to 16 levels"),
+        ("fewer blurs", ValueError, "blurred levels"),
+        ("offsets too short", ValueError, "offsets"),
+        ("offsets from 1", ValueError, "rise from 0"),
+        ("offsets past F", ValueError, "rise from 0"),
+        ("falling offsets", ValueError, "rise from 0"),
+        ("xy float64", TypeError, "float32 keypoints"),
+        ("xy [F,3]", ValueError, r"\[F,2\]"),
+        ("xy strided", ValueError, r"\[F,2\]"),
+        ("image uint8", TypeError, "float32 images"),
+        ("blur of another shape", ValueError, "one \\[H,W\\] shape"),
+        ("image [1,H,W]", ValueError, "one \\[H,W\\] shape"),
+        ("level below 31 rows", ValueError, "31x31"),
+        ("image strided", ValueError, "contiguous level images"),
+    ])
+    def test_level_table_raises(self, images, bad, error, match):
+        """What the kernel does not take raises, on the CPU path too, before
+        anything runs."""
+        raws, blurs, xy, offs = _levels_to(*_frame_levels(images["random"]))
+        offs = list(offs)
+        if bad == "17 levels":
+            raws, blurs, offs = (raws * 5)[:17], (blurs * 5)[:17], [0] * 17 + [xy.shape[0]]
+        elif bad == "no level":
+            raws, blurs, offs = [], [], [xy.shape[0]]
+        elif bad == "fewer blurs":
+            blurs = blurs[:-1]
+        elif bad == "offsets too short":
+            offs = offs[:-1]
+        elif bad == "offsets from 1":
+            offs[0] = 1
+        elif bad == "offsets past F":
+            offs[-1] += 1
+        elif bad == "falling offsets":
+            offs[1], offs[2] = offs[2], offs[1]
+        elif bad == "xy float64":
+            xy = xy.double()
+        elif bad == "xy [F,3]":
+            xy = torch.cat([xy, xy[:, :1]], 1)
+        elif bad == "xy strided":
+            xy = xy.t().contiguous().t()
+        elif bad == "image uint8":
+            raws[1] = raws[1].to(torch.uint8)
+        elif bad == "blur of another shape":
+            blurs[2] = blurs[2][:-1].contiguous()
+        elif bad == "image [1,H,W]":
+            raws[0], blurs[0] = raws[0][None], blurs[0][None]
+        elif bad == "level below 31 rows":
+            raws[3], blurs[3] = raws[3][:30].contiguous(), blurs[3][:30].contiguous()
+        elif bad == "image strided":
+            raws[1] = raws[1].t().contiguous().t()
+            blurs[1] = blurs[1].t().contiguous().t()
+        before = orb_kernel.launches
+        with pytest.raises(error, match=match):
+            orb_kernel.level_table(raws, blurs, xy, offs)
+        with pytest.raises(error, match=match):
+            orb_kernel.orient_and_describe_levels(raws, blurs, xy, offs)
+        assert orb_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_levels_kernel_matches_twin_on_card():
+    """K1's one launch for a whole frame on the card against its twin, on
+    the adversarial frame: descriptor bits identical, angles within 1e-6
+    (atan2f and PyTorch's atan2 may round apart), exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K1 kernel has no CPU mode")
+    args = _levels_to(*_adversarial_levels(), dev=torch.device("cuda"))
+    before = orb_kernel.launches
+    ang_k, desc_k = orb_kernel.orient_and_describe_levels(*args)
+    assert orb_kernel.launches == before + 1
+    ang_t, desc_t = tod.orient_and_describe_levels(*args)
+    torch.cuda.synchronize()
+    assert float((ang_k - ang_t).abs().max()) <= 1e-6
+    assert torch.equal(desc_k, desc_t)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card(images):
     """K1 on the card against its twin on the same inputs: angle atol 1e-4,
@@ -217,6 +405,28 @@ class TestMakeFrame:
         got = tex.make_frame(_t(images[kind]), _t(K), _t(dist), tfc)
         assert got.ur is None and got.depth is None
         _frame_fields_equal(got, want)
+
+    @pytest.mark.parametrize("use_kernel", [None, False])
+    def test_extract_is_the_per_level_assembly(self, images, use_kernel):
+        """One K1 call for the frame gives the Frame that describing each
+        level on its own and concatenating gives, every field identical,
+        through the wrapper (None) and the plain version (False)."""
+        tfc = tex.FrontendConfig(height=H, width=W, n_features=96, n_levels=4,
+                                 use_kernel=use_kernel)
+        assert tfc.level_offsets == tuple(np.cumsum([0, *tfc.level_budgets]))
+        assert tfc.level_offsets[-1] == tfc.capacity
+        img = _t(images["rendered"])
+        got = tex.extract(img, tfc)
+        parts = []
+        for lv, (im, b, s) in enumerate(zip(tpyr.build_pyramid(img, 4, 1.2), tfc.level_budgets,
+                                            tfc.scales)):
+            xy, score, valid = tfast.detect_level(im, 20.0, 7.0, 35, b)
+            ang, desc = tod.orient_and_describe(im, tpyr.gaussian_blur(im), xy)
+            parts.append((xy * s, torch.full((b,), lv, dtype=torch.int32), ang, score, desc, valid))
+        for name, want in zip(("xy", "level", "angle", "response", "desc", "valid"),
+                              (torch.cat(c) for c in zip(*parts))):
+            assert torch.equal(getattr(got, name), want), name
+        assert torch.equal(got.xy_raw, got.xy)
 
     def test_make_frame_rgbd_field_by_field(self, images):
         fc = jex.FrontendConfig(height=H, width=W, n_features=96, n_levels=4)
