@@ -11,7 +11,10 @@ tensors and back, and a `TrackerConfig` crosses as the dict of
 numbers in both packages and crosses as it is. `SystemSettings` crosses as
 `dataclasses.asdict`, `MapMeta` as a dict of numpy arrays, and the host
 state of a `MonocularTracker` as the dict `tracker_host_state_to_numpy`
-reads from either package's tracker.
+reads from either package's tracker. Place recognition crosses too: a
+`Vocabulary` as the dict of its numpy fields, a `BowDatabase` and a
+`Sim3Result` as dicts of numpy arrays, and a stored atlas map (`StoredMap`:
+map, meta, database, covisibility, keyframe timestamps) as a dict of those.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ import torch
 
 from .frontend.extractor import Frame, FrontendConfig
 from .io import config
+from .mapping.atlas import StoredMap
 from .mapping.map_state import MapMeta, MapState
+from .placerec.database import BowDatabase
+from .placerec.vocabulary import Vocabulary
 from .tracking.tracker import AutoState, TrackerConfig
 
 
@@ -119,3 +125,45 @@ def tracker_host_state_from_numpy(t, d: dict):
         elif k == "kf_timestamps":
             v = dict(v)
         setattr(t, k, v)
+
+
+def vocabulary_to_numpy(voc) -> dict:
+    """The fields of either package's `Vocabulary`, as numpy."""
+    return {"levels": [np.array(lv) for lv in voc.levels], "idf": np.array(voc.idf),
+            "branch": int(voc.branch), "depth": int(voc.depth)}
+
+
+def vocabulary_from_numpy(d: dict) -> Vocabulary:
+    return Vocabulary(levels=[np.array(lv) for lv in d["levels"]], idf=np.array(d["idf"]),
+                      branch=int(d["branch"]), depth=int(d["depth"]))
+
+
+def bow_database_from_numpy(arrays: dict, device=None) -> BowDatabase:
+    return _to_tensors(BowDatabase, arrays, device)
+
+
+def bow_database_to_numpy(db) -> dict:
+    return {k: _np(v) for k, v in db._asdict().items()}
+
+
+def sim3_result_to_numpy(res) -> dict:
+    """A `Sim3Result` of either package: ok as bool, counts as ints, S_ab
+    as numpy [8]."""
+    return {"ok": bool(_np(res.ok)), "S_ab": _np(res.S_ab), "n_inliers": int(_np(res.n_inliers)),
+            "n_proj": int(_np(res.n_proj))}
+
+
+def stored_map_to_numpy(sm) -> dict:
+    """A stored atlas map of either package as numpy dicts."""
+    return {"m": {k: _np(v) for k, v in sm.m._asdict().items()},
+            "meta": map_meta_to_numpy(sm.meta),
+            "db": bow_database_to_numpy(sm.db),
+            "covis": None if sm.covis is None else _np(sm.covis),
+            "kf_timestamps": dict(sm.kf_timestamps)}
+
+
+def stored_map_from_numpy(d: dict, device=None) -> StoredMap:
+    return StoredMap(
+        m=map_state_from_numpy(d["m"], device), meta=map_meta_from_numpy(d["meta"]),
+        db=bow_database_from_numpy(d["db"], device), kf_timestamps=dict(d["kf_timestamps"]),
+        covis=None if d["covis"] is None else torch.from_numpy(np.array(d["covis"])).to(device))

@@ -1,8 +1,10 @@
-"""Closed-form point-set alignment (Umeyama).
+"""Closed-form point-set alignment (Umeyama / Horn).
 
-Port of `umeyama` from `dvm_slam_tpu/geometry/alignment.py`
-(`OrbSlam3Wrapper::pointSetAlignment`), the part trajectory evaluation
-needs; `ransac_umeyama` and `horn_sim3` wait for the loop-closing slice.
+Port of `umeyama`, `alignment_residuals` and `horn_sim3` from
+`dvm_slam_tpu/geometry/alignment.py` (`OrbSlam3Wrapper::pointSetAlignment`
+and the closed form inside `Sim3Solver::ComputeSim3`). `umeyama` takes
+leading batch dimensions, so a RANSAC solves all its minimal sets in one
+call; `ransac_umeyama` waits for the loop-closing slice.
 """
 
 from __future__ import annotations
@@ -15,28 +17,39 @@ from . import lie
 def umeyama(src, dst, mask=None, with_scale: bool = True):
     """Least-squares similarity `dst ~ s R src + t`.
 
-    src, dst: [N,3] corresponding points; mask: optional [N] bool or float
-    weights. Returns the Sim3 [8] (q, t, s) mapping src -> dst."""
-    n = src.shape[0]
-    w = (torch.ones((n,), dtype=src.dtype, device=src.device) if mask is None
+    src, dst: [...,N,3] corresponding points; mask: optional [...,N] bool or
+    float weights. Returns the Sim3 [...,8] (q, t, s) mapping src -> dst."""
+    w = (torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device) if mask is None
          else mask.to(src.dtype))
-    wsum = torch.clamp(torch.sum(w), min=1e-9)
-    mu_s = torch.sum(w[:, None] * src, dim=0) / wsum
-    mu_d = torch.sum(w[:, None] * dst, dim=0) / wsum
-    sc = src - mu_s
-    dc = dst - mu_d
-    cov = (dc * w[:, None]).T @ sc / wsum                 # [3,3] = E[dst_c src_c^T]
-    var_s = torch.sum(w * torch.sum(sc * sc, dim=-1)) / wsum
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-9)[..., None]          # [...,1]
+    mu_s = torch.sum(w[..., None] * src, dim=-2) / wsum
+    mu_d = torch.sum(w[..., None] * dst, dim=-2) / wsum
+    sc = src - mu_s[..., None, :]
+    dc = dst - mu_d[..., None, :]
+    cov = (dc * w[..., None]).transpose(-1, -2) @ sc / wsum[..., None]   # E[dst_c src_c^T]
+    var_s = torch.sum(w * torch.sum(sc * sc, dim=-1), dim=-1) / wsum[..., 0]
 
     U, D, Vt = torch.linalg.svd(cov)
     det = torch.linalg.det(U) * torch.linalg.det(Vt)
-    S = torch.cat([torch.ones((2,), dtype=src.dtype, device=src.device),
-                   torch.sign(det)[None]])
-    R = (U * S[None, :]) @ Vt
+    S = torch.cat([torch.ones(det.shape + (2,), dtype=src.dtype, device=src.device),
+                   torch.sign(det)[..., None]], dim=-1)
+    R = (U * S[..., None, :]) @ Vt
     if with_scale:
-        s = torch.sum(D * S) / torch.clamp(var_s, min=1e-12)
+        s = torch.sum(D * S, dim=-1) / torch.clamp(var_s, min=1e-12)
     else:
-        s = torch.ones((), dtype=src.dtype, device=src.device)
-    t = mu_d - s * R @ mu_s
+        s = torch.ones(det.shape, dtype=src.dtype, device=src.device)
+    t = mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]
     q = lie.quat_from_matrix(R)
-    return torch.cat([q, t, s[None]])
+    return torch.cat([q, t, s[..., None]], dim=-1)
+
+
+def alignment_residuals(S, src, dst):
+    """Per-point Euclidean error of `dst - S (x) src`, [N]."""
+    return torch.linalg.norm(dst - lie.sim3_apply(S, src), dim=-1)
+
+
+def horn_sim3(p1, p2, with_scale: bool = True):
+    """Horn's closed-form similarity from 3 (or more) correspondences, the
+    minimal solver of `Sim3Solver::ComputeSim3`: the same math as
+    `umeyama`, batched like it."""
+    return umeyama(p1, p2, with_scale=with_scale)

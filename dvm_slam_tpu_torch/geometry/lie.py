@@ -1,8 +1,11 @@
 """SO(3) / SE(3) Lie groups as batched PyTorch functions.
 
 Port of the SO3/SE3 part of `dvm_slam_tpu/geometry/lie.py` and of the Sim3
-group operations trajectory alignment needs (the Sim3 tangent space waits for
-the loop-closing slice). Same storage conventions:
+group operations that trajectory alignment and map merging need
+(`sim3_exp/log/retract`, the Sim3 tangent space, wait for the pose graph).
+`sim3_fold` is the port's name for the scale fold the reference writes out
+inline wherever a world-level Sim3 re-bases a pose. Same storage
+conventions:
 
 * quaternion `[..., 4]` scalar-first `(w, x, y, z)`, unit norm;
 * SE3 `[..., 7]` = `(qw, qx, qy, qz, tx, ty, tz)`;
@@ -258,6 +261,41 @@ def sim3_identity(shape=(), dtype=torch.float32, device=None):
     S[..., 0] = 1.0
     S[..., 7] = 1.0
     return S
+
+
+def sim3(q, t, s):
+    return torch.cat([q, t, s[..., None] if s.dim() == q.dim() - 1 else s], dim=-1)
+
+
+def sim3_from_se3(T, s=None):
+    s = (torch.ones(T.shape[:-1] + (1,), dtype=T.dtype, device=T.device) if s is None
+         else torch.as_tensor(s, dtype=T.dtype, device=T.device).reshape(T.shape[:-1] + (1,)))
+    return torch.cat([T, s], dim=-1)
+
+
+def sim3_to_se3(S):
+    """Drop the scale (keep rotation and translation)."""
+    return S[..., 0:7]
+
+
+def sim3_mul(a, b):
+    q = quat_normalize(quat_mul(sim3_q(a), sim3_q(b)))
+    t = sim3_s(a)[..., None] * quat_rotate(sim3_q(a), sim3_t(b)) + sim3_t(a)
+    s = sim3_s(a) * sim3_s(b)
+    return torch.cat([q, t, s[..., None]], dim=-1)
+
+
+def sim3_inv(S):
+    qi = quat_conj(sim3_q(S))
+    si = 1.0 / sim3_s(S)
+    ti = -si[..., None] * quat_rotate(qi, sim3_t(S))
+    return torch.cat([qi, ti, si[..., None]], dim=-1)
+
+
+def sim3_fold(S):
+    """The SE3 [...,7] with a Sim3's scale folded into its translation,
+    (q, t / s): how a world-level Sim3 re-bases a camera pose."""
+    return se3(sim3_q(S), sim3_t(S) / torch.clamp(sim3_s(S), min=1e-12)[..., None])
 
 
 def sim3_q(S):

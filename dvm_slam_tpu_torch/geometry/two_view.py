@@ -184,6 +184,13 @@ def _check_rt(R, t, x1, x2, mask, f2, sigma2: float):
     return torch.sum(good, dim=-1), good, X
 
 
+def gumbel(generator, shape):
+    """Standard Gumbel noise of `shape`, f32 on the CPU, from `generator`:
+    every RANSAC of the port draws its minimal sets from such a block."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
 def sample_indices(noise, mask, sample: int = SAMPLE):
     """Minimal sets of the RANSAC: per row of `noise` [I,N] the `sample`
     largest of noise + (0 where mask, -1e9 elsewhere), ties to the lowest

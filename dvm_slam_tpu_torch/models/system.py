@@ -7,10 +7,14 @@ Port of `dvm_slam_tpu/models/system.py` for `sensor="monocular"`:
         T_cw = sys.track_monocular(img, ts)
     sys.save_trajectory_tum("traj.txt")
 
+With `vocabulary_file` (e.g. `data/voc_default.npz`) the tracker gets
+relocalization and the multi-map atlas: a new map on persistent LOST and the
+merge-back into a stored map on a later keyframe.
+
 Paths that need modules not ported yet raise `NotImplementedError` naming
-their ROADMAP item: the other sensor modes (13), a vocabulary with
-relocalization and the atlas (9), the viewer (14), and map serialization and
-the atlas checkpoint (10, 11).
+their ROADMAP item: the other sensor modes (13), the viewer (14), and map
+serialization and the atlas checkpoint (11, which ports `codec` and
+`wirecodec`).
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ import torch
 
 from ..io import config as config_mod
 from ..io import trajectory as traj_mod
+from ..mapping import atlas as atlas_mod
 from ..mapping import local_mapping
 from ..ops import pyramid
+from ..placerec import vocabulary
+from ..tracking import relocalization
 from ..tracking import tracker as trk
 
 MONOCULAR = "monocular"
@@ -52,8 +59,6 @@ class System:
             raise NotImplementedError(f"unknown sensor mode {sensor!r}; supported: {_SENSORS}")
         if sensor != MONOCULAR:
             raise _not_ported(f"sensor mode {sensor!r}", "13")
-        if vocabulary_file:
-            raise _not_ported("place recognition and relocalization (vocabulary_file)", "9")
         if use_viewer:
             raise _not_ported("the viewer", "14")
         if isinstance(settings, str):
@@ -68,6 +73,17 @@ class System:
             np.asarray(settings.camera.dist, np.float32), local_mapper=self.mapper,
             rng_seed=agent_id, device=self.device)
         self.tracker.meta.agent_id = agent_id
+        self.voc = vocabulary.load(vocabulary_file) if vocabulary_file else None
+        if self.voc is not None:
+            # relocalization and the multi-submap atlas (a new map on
+            # persistent LOST, merge-back); a monocular map's scale is free
+            fc = settings.frontend_config(use_kernel)
+            self.tracker.relocalizer = relocalization.RelocalizationService(
+                self.voc, settings.camera.K(), fc.sigma2, kf_cap=settings.kf_capacity,
+                device=self.device)
+            self.tracker.atlas = atlas_mod.Atlas(self.voc, settings.camera.K(), fc,
+                                                 agent_id=agent_id, fix_scale=False,
+                                                 device=self.device)
         if settings.load_atlas_from_file:
             self.load_atlas(settings.load_atlas_from_file)
         # the tracking/mapping overlap: the tracker enters the autonomous
@@ -109,10 +125,10 @@ class System:
         raise _not_ported("map serialization (multiagent/codec.py)", "11")
 
     def save_atlas(self, path: str):
-        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "10 and 11")
+        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "11")
 
     def load_atlas(self, path: str):
-        raise _not_ported("the atlas checkpoint (codec, wirecodec, merge_maps)", "10 and 11")
+        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "11")
 
     # -- trajectory export -----------------------------------------------
 

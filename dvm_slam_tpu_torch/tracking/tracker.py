@@ -7,7 +7,8 @@ Port of `dvm_slam_tpu/tracking/tracker.py`: the device step
 `create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`) and
 the host state machine `MonocularTracker` for a monocular pinhole camera
 (two-view initialization, motion-model tracking, the keyframe decision, the
-pipelined lane and the autonomous lane). Two helpers come from the
+pipelined lane, the autonomous lane, relocalization and the multi-map
+atlas). Two helpers come from the
 reference's host code: `bootstrap_from_depth` (the map seeding of
 `_try_initialize_depth`) and `motion_model_step` (the pose chain of
 `autonomous_step`). `autonomous_step_batch` returns the reference's packed
@@ -372,8 +373,15 @@ class MonocularTracker:
     samplers draw from a `torch.Generator` on the CPU seeded with `rng_seed`
     (`_ransac_noise`), so the card and the CPU see the same draws; keyframe
     and point uuids come from a numpy generator with the same seed.
-    Relocalization (`relocalizer`) and the multi-map atlas (`atlas`) are
-    hooks that stay None until ROADMAP items 9 and 10."""
+    Relocalization (`relocalizer`, a `RelocalizationService`) and the
+    multi-map atlas (`atlas`, a `mapping.atlas.Atlas`) stay None unless the
+    caller sets them, as `System` does when given a vocabulary.
+
+    One repair beyond the reference: the pipelined retire stashes the map in
+    the atlas on persistent LOST, as `_track_resolve` does. The reference's
+    visual pipelined retire lacks it, so its `System`, whose lost frames
+    after the autonomous hand-back all take the pipelined lane, never starts
+    a new map."""
 
     def __init__(self, config: TrackerConfig, K, dist, local_mapper=None, rng_seed=0,
                  relocalizer=None, inertial=False, imu_calib=None, T_cb=None,
@@ -399,7 +407,7 @@ class MonocularTracker:
         self.last_kf_slot = -1
         self.local_mapper = local_mapper
         self.relocalizer = relocalizer  # callable (map, frame) -> (ok, T, n)
-        self.atlas = None
+        self.atlas = None               # optional mapping.atlas.Atlas
         self.n_frames = 0
         self._lost_frames = 0
         self.rng = torch.Generator(device="cpu")
@@ -411,6 +419,9 @@ class MonocularTracker:
         self._init_ts = None
         self.meta_dirty = False  # new points exist whose uuids are unassigned
         self.n_kf_host = 0       # host mirror of map.n_kf (keyframes are append-only)
+        # bumped whenever keyframe slots are rebuilt wholesale (atlas stash,
+        # merge-back): host mirrors of per-slot state refresh on a bump
+        self.map_epoch = 0
         # pipelined lane (async_depth > 0): state-machine decisions run
         # async_depth frames behind the dispatch
         self.async_depth = 0
@@ -426,13 +437,14 @@ class MonocularTracker:
         # hands the rest of the buffered frames back to the host path
         self.auto_batch = 1
         self._auto_imgs = []     # buffered (img, ts) awaiting a full batch
+        # a keyframe retired from the autonomous lane while the atlas holds
+        # stored maps: drain and try the merge-back
+        self._atlas_check_pending = False
 
     def _ransac_noise(self, n: int):
         """Gumbel noise [iters, n] of the homography and the essential RANSAC
         samplers, drawn on the CPU from `self.rng` and moved to the device."""
-        u = torch.rand((2, RANSAC_ITERS, n), generator=self.rng, dtype=torch.float32)
-        g = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
-        g = g.to(self.device)
+        g = two_view.gumbel(self.rng, (2, RANSAC_ITERS, n)).to(self.device)
         return g[0], g[1]
 
     def _new_uuids(self, n: int):
@@ -468,7 +480,20 @@ class MonocularTracker:
         if self.autonomous:
             return self._process_autonomous(img, timestamp)
         if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
-            self._try_relocalize(None, timestamp)
+            # relocalize first: the motion model is stale after a loss. The
+            # frame is extracted once; on failure it is tracked as it is
+            frame = make_frame(img, self.K, self.dist, self.config.frontend)
+            pose = self._try_relocalize(frame, timestamp)
+            if pose is None:
+                T_pred, v_pred = self._predict_pose()
+                res = track_frame(self.map, frame, T_pred, self.K, self.config)
+                if self.async_depth > 0:
+                    pose = self._pipeline_push(frame, timestamp, res)
+                else:
+                    pose = self._track_resolve(frame, timestamp, T_pred, v_pred, res)
+            if pose is not None:
+                self.trajectory.append((timestamp, pose, self.state))
+            return pose
         T_pred, v_pred = self._predict_pose()
         frame, res, pv, pf = make_and_track(img, self.map, T_pred, self.K, self.dist,
                                             self.config)
@@ -532,6 +557,8 @@ class MonocularTracker:
             # drop the poisoned chain: predict again from the last good pose
             self._pipeline.clear()
             self.velocity = lie.se3_identity(device=self.device)
+            if self._atlas_due():
+                self._new_map_in_atlas()
             return
         self._lost_frames = 0
         self.state = OK
@@ -610,6 +637,11 @@ class MonocularTracker:
                     p = self.process_image(im, t)
                     pose = p if p is not None else pose
                 return pose
+        if self._atlas_check_pending and self.autonomous:
+            self._atlas_check_pending = False
+            self.drain_auto()
+            if self.autonomous:
+                self._atlas_merge_back()
         return self._auto_state.T_cw
 
     def _push_auto_record(self, m, st, tss, rows):
@@ -652,6 +684,8 @@ class MonocularTracker:
                 self.meta_dirty = True
                 if self.local_mapper is not None:
                     self.local_mapper._kf_count += 1
+                if self.atlas is not None and self.atlas.inactive:
+                    self._atlas_check_pending = True
             if not good[i]:
                 self._lost_frames += 1
                 self.state = RECENTLY_LOST if self.state == OK else LOST
@@ -807,25 +841,44 @@ class MonocularTracker:
 
     def _track(self, frame: Frame, timestamp: float):
         if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
-            self._try_relocalize(frame, timestamp)
+            pose = self._try_relocalize(frame, timestamp)
+            if pose is not None:
+                return pose
         T_pred, v_pred = self._predict_pose()
         res = track_frame(self.map, frame, T_pred, self.K, self.config)
         return self._track_resolve(frame, timestamp, T_pred, v_pred, res)
 
     def _try_relocalize(self, frame: Frame, timestamp: float):
-        raise _not_ported("relocalization", 9)
+        """`Tracking::Relocalization`: BoW candidates + PnP, then the
+        two-stage projection search and pose refinement against the map
+        (`track_frame`). Returns the pose or None."""
+        ok, T, _ = self.relocalizer(self.map, frame)
+        if not ok:
+            return None
+        res = track_frame(self.map, frame, T, self.K, self.config)
+        if int(res.n_inliers) >= self.config.min_track_inliers:
+            self.map = update_visibility(self.map, res.visible, res.found)
+            T = res.T_cw
+        self.state = OK
+        self._lost_frames = 0
+        self.velocity = lie.se3_identity(device=self.device)
+        self.last_pose = T
+        self._last_good_ts = timestamp
+        self.frames_since_kf += 1
+        return T
 
     def _track_resolve(self, frame: Frame, timestamp: float, T_pred, v_pred,
                        res: TrackResult, vis=None):
         n_inl = int(res.n_inliers)
         if n_inl < self.config.min_track_inliers:
             if self.relocalizer is not None:
-                self._try_relocalize(frame, timestamp)
+                pose = self._try_relocalize(frame, timestamp)
+                if pose is not None:
+                    return pose
             self.state = RECENTLY_LOST if self.state == OK else LOST
             self.velocity = lie.se3_identity(device=self.device)
             self._lost_frames += 1
-            if (self.atlas is not None and self.state == LOST
-                    and self._lost_frames >= 5 and int(self.map.n_kf) >= 10):
+            if self._atlas_due():
                 self._new_map_in_atlas()
             return None
         self._lost_frames = 0
@@ -844,8 +897,37 @@ class MonocularTracker:
             return self.last_pose
         return res.T_cw
 
+    def _atlas_due(self) -> bool:
+        """`Tracking::CreateMapInAtlas`'s trigger: persistent LOST (5 lost
+        frames) with a mature map (10 keyframes)."""
+        return (self.atlas is not None and self.state == LOST and self._lost_frames >= 5
+                and int(self.map.n_kf) >= 10)
+
     def _new_map_in_atlas(self):
-        raise _not_ported("the multi-map atlas", 10)
+        """Stash the active map in the atlas and restart on a fresh submap
+        (`Tracking::CreateMapInAtlas`)."""
+        self.flush_meta()
+        self.atlas.stash_active(self.map, self.meta, self.kf_timestamps)
+        cfg = self.config
+        self.map = map_state.create(cfg.kf_cap, cfg.pt_cap, cfg.frontend.capacity,
+                                    device=self.device)
+        self.meta = map_state.MapMeta.create(cfg.kf_cap, cfg.pt_cap, agent_id=self.meta.agent_id)
+        self.map_epoch += 1
+        self.state = NOT_INITIALIZED
+        self.init_frame = None
+        self.velocity = lie.se3_identity(device=self.device)
+        self.last_pose = lie.se3_identity(device=self.device)
+        self.kf_timestamps = {}
+        self.frames_since_kf = 0
+        self.ref_kf_tracked = 0
+        self.last_kf_slot = -1
+        self._lost_frames = 0
+        self.n_kf_host = 0
+        self._pipeline = []
+        if self.local_mapper is not None:
+            self.local_mapper._kf_count = 0
+        if self.relocalizer is not None and hasattr(self.relocalizer, "reset"):
+            self.relocalizer.reset(cfg.kf_cap)
 
     def _need_new_keyframe(self, n_inliers: int):
         """`Tracking::NeedNewKeyFrame` gates; thRefRatio 0.9 for a
@@ -875,8 +957,37 @@ class MonocularTracker:
         self._atlas_merge_back()
 
     def _atlas_merge_back(self):
-        """Weld the active map into a stored one of the atlas; nothing to do
-        without an atlas."""
+        """Weld the active map into a stored one when place recognition and
+        the Sim3 verification succeed (LoopClosing's active-to-stored
+        merge). Called after every host-path keyframe and, drained, after
+        keyframes of the autonomous lane."""
         if self.atlas is None or not self.atlas.inactive:
             return
-        raise _not_ported("the atlas merge-back", 10)
+        self.flush_meta()
+        out = self.atlas.try_merge_back(self.map, self.meta, self.last_kf_slot)
+        if out is None:
+            return
+        merged, meta, kf_map, S_ab, stored_ts = out
+        self.map = merged
+        self.meta = meta
+        self.n_kf_host = int(merged.n_kf)
+        self.map_epoch += 1
+        S = torch.as_tensor(S_ab, dtype=torch.float32, device=self.device)
+        self.last_pose = lie.sim3_fold(lie.sim3_mul(lie.sim3_from_se3(self.last_pose),
+                                                    lie.sim3_inv(S)))
+        self.velocity = lie.se3_identity(device=self.device)
+        new_ts = dict(stored_ts)
+        for slot, t in self.kf_timestamps.items():
+            ns = int(kf_map[slot])
+            if ns >= 0:
+                new_ts[ns] = t
+        self.kf_timestamps = new_ts
+        ns = int(kf_map[self.last_kf_slot])
+        # a capacity overflow dropped the query keyframe: take the newest slot
+        self.last_kf_slot = ns if ns >= 0 else int(merged.n_kf) - 1
+        if self.relocalizer is not None and hasattr(self.relocalizer, "reset"):
+            self.relocalizer.reset(self.config.kf_cap)   # the slots changed
+        if self.autonomous:
+            # the renumbered slots invalidate the device continuation
+            self._auto_state = self._auto_state._replace(T_cw=self.last_pose,
+                                                         velocity=self.velocity)

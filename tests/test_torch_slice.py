@@ -46,12 +46,12 @@ EUROC_K = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
 MAPPER_FULL = (5, 8, 1.2, 12, 8, 4096, 6, 1)   # bench.py's LocalMapper
 
 
-def _scene(h, w, tex_size, n_frames):
+def _scene(h, w, tex_size, n_frames, **world_kw):
     """The benchmark scene at (h, w): EuRoC intrinsics scaled to the width,
     the JAX world's renders of the first n_frames poses and frame 0's
-    depth."""
+    depth. `world_kw`: the world's layout (e.g. DENSE_WORLD)."""
     K = EUROC_K * np.float32(w / 752)
-    world = jsyn.PlaneWorld(seed=7, tex_size=tex_size, plane_z=6.0, extent=36.0)
+    world = jsyn.PlaneWorld(seed=7, tex_size=tex_size, plane_z=6.0, extent=36.0, **world_kw)
     poses = jsyn.smooth_trajectory(60, lateral=2.5, forward=0.8, yaw=0.1)[:n_frames]
     Kj = jnp.asarray(K)
     imgs = [np.array(world.render(jnp.asarray(p), Kj, h, w)) for p in poses]
@@ -295,7 +295,11 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.geometry.triangulation, "
                 "dvm_slam_tpu_torch.geometry.two_view, dvm_slam_tpu_torch.geometry.alignment, "
                 "dvm_slam_tpu_torch.io.config, dvm_slam_tpu_torch.io.trajectory, "
-                "dvm_slam_tpu_torch.eval.metrics, dvm_slam_tpu_torch.models.system; "
+                "dvm_slam_tpu_torch.eval.metrics, dvm_slam_tpu_torch.models.system, "
+                "dvm_slam_tpu_torch.placerec.vocabulary, dvm_slam_tpu_torch.placerec.database, "
+                "dvm_slam_tpu_torch.geometry.pnp, dvm_slam_tpu_torch.tracking.relocalization, "
+                "dvm_slam_tpu_torch.loopclosing.sim3_solver, "
+                "dvm_slam_tpu_torch.loopclosing.merge, dvm_slam_tpu_torch.mapping.atlas; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
                 "or m == 'yaml' or m.startswith('yaml.')]; "
@@ -485,6 +489,181 @@ def _reference_slice3_main():
     print(json.dumps(out))
 
 
+# Slice 6: the System with the shipped vocabulary. Sequences are lists of
+# (ground-truth frame or None for a black frame, timestamp).
+N_BLACK6, REVISIT6 = 4, (30, 42)          # phase 16: blackout, revisited frames
+N_BLACK6A, REVISIT6A = 20, (10, 60)       # phase 17
+FPS6A = 5.0                               # phase 17's camera.fps
+# phase 17's world: the dense 36-patch layout. On the default 8-patch world
+# at camera.fps 5 the reference's first map loses track at frame 41, before
+# the blackout.
+DENSE_WORLD = dict(n_patches=36, depth_range=(0.30, 0.92), patch_half=(0.03, 0.09))
+
+
+def slice6_sequences():
+    """(phase 16, phase 17) sequences: frames 0..59, a blackout, then a
+    revisit, frame index i stamped i / 20 throughout."""
+    def seq(n_black, revisit):
+        frames = list(range(60)) + [None] * n_black + list(range(*revisit))
+        return [(f, i / 20.0) for i, f in enumerate(frames)]
+    return seq(N_BLACK6, REVISIT6), seq(N_BLACK6A, REVISIT6A)
+
+
+def jax_vocab_run(settings, imgs, poses, seq, drain_after=None):
+    """`seq` through the JAX package's `System(settings, vocabulary_file=
+    data/voc_default.npz)` as agent 0, recording per call the state, the
+    pose, relocalization attempts (with the relocalizer's inliers), stashes,
+    merge-back attempts and two-view inits. Two changes to the tracker make
+    the run the one the port makes: records of the autonomous lane retire
+    as soon as the next one is dispatched (`_record_ready` true, so the
+    hand-back lands on the same call in every run), and the pipelined
+    retire stashes the map on persistent LOST as `_track_resolve` does (the
+    port's repair; without it the System never starts a new map). After
+    call `drain_after` the lane is drained, as the smoke's saving of the
+    trajectory there does (it restarts the batches of 4)."""
+    from dvm_slam_tpu.geometry import two_view as jtv
+    from dvm_slam_tpu.models import system as jsys
+
+    sysj = jsys.System(settings, vocabulary_file=os.path.join(REPO, "data", "voc_default.npz"))
+    t = sysj.tracker
+    log = dict(calls=[], reloc=[], stash=[], merge=[], inits=[])
+    cur = [0]
+    t._record_ready = lambda rec: True
+    retire = t._retire_pipelined
+
+    def retire_and_stash():
+        before = t._lost_frames
+        retire()
+        if (t._lost_frames > before and t.atlas is not None and t.state == jtrk.LOST
+                and t._lost_frames >= 5 and int(t.map.n_kf) >= 10):
+            t._new_map_in_atlas()
+
+    t._retire_pipelined = retire_and_stash
+    from dvm_slam_tpu.tracking import relocalization as jrel
+
+    relocalize, last_n = jrel.relocalize, [0]
+
+    def counting(*args, **kwargs):
+        ok, T, n = relocalize(*args, **kwargs)
+        last_n[0] = int(n)
+        return ok, T, n
+
+    try_reloc = t._try_relocalize
+
+    def logged_reloc(frame, ts):
+        pose = try_reloc(frame, ts)
+        log["reloc"].append((cur[0], pose is not None, last_n[0],
+                             None if pose is None else np.asarray(pose).tolist()))
+        return pose
+
+    t._try_relocalize = logged_reloc
+    stash = t._new_map_in_atlas
+
+    def logged_stash():
+        log["stash"].append((cur[0], int(t.map.n_kf)))
+        stash()
+
+    t._new_map_in_atlas = logged_stash
+    merge = t.atlas.try_merge_back
+
+    def logged_merge(m, meta, q):
+        out = merge(m, meta, q)
+        log["merge"].append((cur[0], int(q), out is not None,
+                             None if out is None else np.asarray(out[3]).tolist(),
+                             None if out is None else int(out[0].n_kf), len(t.trajectory)))
+        return out
+
+    t.atlas.try_merge_back = logged_merge
+    original = jtv.reconstruct_two_views
+
+    def recording(*args, **kwargs):
+        res = original(*args, **kwargs)
+        if bool(res.ok):
+            log["inits"].append((cur[0], int(np.asarray(res.good).sum()),
+                                 bool(res.used_homography)))
+        return res
+
+    jtv.reconstruct_two_views, jrel.relocalize = recording, counting
+    black = np.zeros_like(imgs[0])
+    log["init_pairs"] = []
+    try:
+        for i, (f, ts) in enumerate(seq):
+            cur[0] = i
+            was = t.state
+            pose = sysj.track_monocular(black if f is None else imgs[f], ts)
+            if was == jtrk.NOT_INITIALIZED and t.state == jtrk.OK:
+                log["init_pairs"].append((int(round(t._init_ts * 20)), i))
+            if i == drain_after:
+                t.drain_auto()
+            log["calls"].append((i, t.state, pose is not None, int(t.map.n_kf),
+                                 len(t.atlas.inactive), t.autonomous))
+        t.drain_auto()
+    finally:
+        jtv.reconstruct_two_views, jrel.relocalize = original, relocalize
+    rows = [(float(ts), np.asarray(T, np.float32)) for ts, T, _ in t.trajectory]
+    log["rows"] = [(ts, T.tolist()) for ts, T in rows]
+    log["n_kf"] = int(t.map.n_kf)
+    return log
+
+
+def slice6_summary(ref, poses):
+    """The numbers `chip_smoke.py`'s JAX_REF6 holds, from the logs of the
+    two runs (`jax_vocab_run`, as printed) and the ground truth: phase 16's
+    first successful relocalization (call, relocalizer inliers, camera
+    center distance from the pre-blackout estimate of the same view); phase
+    17's stash (call, stored keyframes), inits, merge call, S_ab, the ATE
+    over the rows in the stored map's frame (calls 0..59 before the stash,
+    every row after the merge) and the spread of the second init over
+    agents 0-5 (frame pairs)."""
+    from dvm_slam_tpu.eval import metrics as jmetrics
+
+    seq16, seq17 = slice6_sequences()
+    r16, r17 = ref["phase16"], ref["phase17"]
+
+    def center(T):
+        return np.asarray(jlie.se3_t(jlie.se3_inv(jnp.asarray(np.asarray(T, np.float32)))))
+
+    call, _, n_inl, T_rel = [r for r in r16["reloc"] if r[1]][0]
+    view = seq16[call][0]
+    pre = [T for ts, T in r16["rows"] if abs(ts - view / 20.0) < 1e-9][0]
+    merge = [m for m in r17["merge"] if m[2]][0]
+    rows, n_before = r17["rows"], merge[5]
+    keep = [r for r in rows[:n_before] if int(round(r[0] * 20)) < 60] + rows[n_before:]
+    keep = [r for r in keep if seq17[int(round(r[0] * 20))][0] is not None]
+    est = np.stack([np.asarray(T, np.float32) for _, T in keep])
+    gt = np.stack([np.asarray(poses[seq17[int(round(ts * 20))][0]]) for ts, _ in keep])
+    spread = [(REVISIT6A[0] + p[0], REVISIT6A[0] + p[1])
+              for p, _, _ in (v for v in r17["init_by_seed"].values() if v is not None)]
+    return {
+        "phase16": {"reloc_call": call, "reloc_inliers": n_inl,
+                    "reloc_dist": float(np.linalg.norm(center(T_rel) - center(pre)))},
+        "phase17": {"stash": tuple(r17["stash"][0]), "init_pairs": r17["init_pairs"],
+                    "merge_call": merge[0], "S_ab": merge[3],
+                    "ate": float(jmetrics.ate_rmse(est, gt)[0]), "init_spread": spread},
+    }
+
+
+def _reference_slice6_main():
+    """The JAX package's CPU reference of the smoke's slice-6 runs (phase 16:
+    slice 3's settings with the vocabulary, a blackout of N_BLACK6 frames,
+    a revisit of REVISIT6; phase 17: the dense world, camera.fps FPS6A,
+    N_BLACK6A black frames, a revisit of REVISIT6A), then the two-view init alone on the
+    phase-17 revisit frames under the draws of agents 0-5 (the spread the
+    smoke holds the second map's init to). Prints one JSON object."""
+    _, poses, imgs, _ = _scene(480, 752, 2048, 60)
+    d = euroc_settings_dict()
+    seq16, seq17 = slice6_sequences()
+    out = {"phase16": jax_vocab_run(jax_settings(d), imgs, poses, seq16, drain_after=59)}
+    _, _, imgs, _ = _scene(480, 752, 2048, 60, **DENSE_WORLD)
+    d17 = {**d, "camera": {**d["camera"], "fps": FPS6A}}
+    out["phase17"] = jax_vocab_run(jax_settings(d17), imgs, poses, seq17)
+    revisit = imgs[REVISIT6A[0]:REVISIT6A[0] + 16]
+    out["phase17"]["init_by_seed"] = {
+        seed: jax_init_outcome(jax_settings(d17), revisit, seed) for seed in range(6)}
+    print(json.dumps(out))
+    print(json.dumps(slice6_summary(json.loads(json.dumps(out)), poses)))
+
+
 if __name__ == "__main__":
     import jax
 
@@ -493,5 +672,7 @@ if __name__ == "__main__":
         _reference_slice2_main()
     elif "--slice3" in sys.argv:
         _reference_slice3_main()
+    elif "--slice6" in sys.argv:
+        _reference_slice6_main()
     else:
         _reference_main()

@@ -173,8 +173,7 @@ class TestSystemFacade:
             with pytest.raises(NotImplementedError, match="ROADMAP item"):
                 call()
         settings = convert.system_settings_from_dict(dataclasses.asdict(_settings()))
-        for kwargs in (dict(sensor="stereo"), dict(vocabulary_file="voc.npz"),
-                       dict(use_viewer=True)):
+        for kwargs in (dict(sensor="stereo"), dict(use_viewer=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP item"):
                 tsys.System(settings, device="cpu", **kwargs)
         with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
