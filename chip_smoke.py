@@ -13,7 +13,8 @@ initialization, the tracker's state machine, the saved trajectory), and
 slice 6, the same facade with the shipped vocabulary (`System(...,
 vocabulary_file="data/voc_default.npz")`): relocalization after a blackout,
 and the multi-map atlas (a new map on persistent LOST, merged back into the
-stored one on a revisit).
+stored one on a revisit), and slice 7, two decentralized `SlamAgent`s that
+merge their maps, and the `System` checkpoint.
 Three hand-written kernels: K1 (fused ORB orientation + steered BRIEF,
 `csrc/orb_describe.cu`), K2 (BA adjoint scatter) and K3 (BA point gather,
 both `csrc/onehot_scatter.cu`). Phases, in order; any failure raises and the
@@ -118,12 +119,39 @@ run exits non-zero:
     In phases 16-17 records of the autonomous lane retire as soon as the
     next one is dispatched (`_record_ready` true, as on the CPU), so the
     hand-back to the host path lands on the same call in every run.
+18. the decentralized runtime: two `SlamAgent`s (`multiagent/agent.py`) on
+    one `LoopbackTransport` at the EuRoC tracker settings with camera.fps
+    FPS18, the console's mapper (BA windows of 8 local + 8 fixed rows) and
+    the vocabulary, on the dense world along an 80-frame trajectory (agent
+    1 frames 0..51, agent 2 frames 28..79, interleaved; then flush() and
+    N_IDLE18 protocol rounds): BoW advertisement, merge detection, the pull
+    of agent 1's map, Sim3 verification, splice, fuse, the welding BA
+    (L = WELD_L), the essential graph, the asynchronous global BA,
+    keyframe sharing both ways, the frame-tree re-parenting. Held to the
+    JAX CPU reference of the same run over five sets of tracker draws
+    (`JAX_REF7`; the init, and with it the maps' scales, depend on the
+    draws) and to ground truth: both peers merged, the merge within
+    MERGE_STEPS steps of the reference's, S_ab's scale within SCALE_RTOL of
+    the reference's spread and of the scale ground truth implies for the
+    two maps just before the splice, each map holding the other agent's
+    keyframes, agent 2 under robot1/origin, the global BA folded in, the
+    host mirrors in sync, agent 2's keyframe ATE under 3x the reference's
+    and 0.2 m; K1-K3
+    launched, K2/K3 at L = 16 and L = 20; the plain path merging at the
+    same step with the same log kinds, S_ab to 1e-3. Prints
+    `process_image` ms by kind (median, p90, max), `merge_latency_s`, the
+    global BA's dispatch-to-fold seconds and the bytes per channel;
+19. the checkpoint: `save_atlas` of phase 12's System into `build/`,
+    `load_atlas` into a fresh System on the card: every array of the saved
+    map's packet comes back (the point statistics `load_atlas` recomputes
+    aside), the tracker state too, and a second save and load changes no
+    MapState field.
 
 Run from the root of a checkout: `python3 chip_smoke.py`. The last line is
 `{"ok": true, "device": {...}}`; the line before it the card's name and power
 limit, and before that one JSON line describing the kernels (times of phase
-15; launches summed over phases 12, 16 and 17, each counted from zero just
-before its run). `python3 chip_smoke.py --kernels-only` runs phases 1-3, 7, 8 and 15
+15; launches summed over phases 12, 16, 17 and 18, each counted from zero
+just before its run). `python3 chip_smoke.py --kernels-only` runs phases 1-3, 7, 8 and 15
 (launch counts not taken) and prints no result line.
 """
 
@@ -256,6 +284,70 @@ JAX_REF6 = {
                 "ate": 0.004693987779319286,
                 "init_spread": [(10, 12), (10, 11), (10, 12), (10, 13), (10, 12), (10, 11)]},
 }
+
+# Slice 7: two `SlamAgent`s on one loopback bus (phase 18) at the EuRoC
+# tracker settings with camera.fps FPS18 (a keyframe at least every 4
+# frames, the knob of the reference's `tests/test_multiagent.py:118`), the
+# console's mapper (`tools/console.py::build_agents`) and the vocabulary, on
+# the dense world along a trajectory of 80 frames: agent 1 takes frames
+# 0..51, agent 2 frames 28..79, one each per step stamped step / 10; then
+# flush() and N_IDLE18 protocol iterations (`tests/test_multiagent.py:139-161`).
+FPS18 = 4.0
+SEGMENTS18 = {1: (0, 52), 2: (28, 80)}
+N_STEPS18, N_IDLE18 = 52, 6
+TRAJ18 = dict(lateral=2.2, forward=0.6, yaw=0.08)
+CONSOLE_MAPPER = dict(n_neighbors=4, ba_local=8, ba_fixed=8, ba_pts=2048, ba_iters=6)
+KF_BA_L = CONSOLE_MAPPER["ba_local"] + CONSOLE_MAPPER["ba_fixed"]   # keyframe BA rows (16)
+MERGE_STEPS = 4            # the merge step, card against the JAX CPU reference
+SCALE_RTOL = 0.05          # S_ab's scale against the reference's spread and ground truth
+ATE18_BOUND_M = 0.2        # tests/test_multiagent.py:203
+# The JAX package's CPU reference of phase 18 (`python tests/test_torch_slice.py
+# --slice7`): the merges (merging agent, step, S_ab), per agent the log kinds
+# and keyframes by creator, and agent 2's keyframe ATE (m) over its keyframes.
+# Agent 1, the lead node, found the candidates and pushed its map; agent 2
+# merged it, folded the global BA and aligned its scale in the idle rounds.
+JAX_REF7 = {
+    "merges": [{"agent": 2, "step": 47,
+                "S_ab": [0.999310314655304, -0.0029089543968439102, -0.037020787596702576,
+                         0.00021261196525301784, -1.0186160802841187, 0.04289642348885536,
+                         -0.18600599467754364, 1.0282059907913208]}],
+    "1": {"log_kinds": ["merge_candidates"], "by_creator": {1: 15, 2: 11}},
+    "2": {"log_kinds": ["gba_applied", "merge_latency_s", "merged", "scale_aligned"],
+          "by_creator": {1: 12, 2: 15}},
+    "ate2": 0.001999935135245323, "ate2_n": 15,
+    # the same run with the trackers' draws from PRNGKey(agent id + offset)
+    # (`--slice7 --seed-offset N`): the merging agent, its step, S_ab's
+    # scale, the scale ground truth implies for the two maps just before the
+    # splice, agent 2's keyframe ATE. At offset 20 one map's two-view init
+    # took a wrong solution and the merge is off by 62% in scale; at offset
+    # 30 agent 1 was lost at step 29 and nothing merged (fault o).
+    "spread": [
+        {"offset": 0, "agent": 2, "step": 47, "scale": 1.0282059907913208,
+         "scale_gt": 1.029950538908306, "ate2": 0.001999935135245323},
+        {"offset": 10, "agent": 2, "step": 48, "scale": 1.1842399835586548,
+         "scale_gt": 1.1818301975948902, "ate2": 0.00175901735201478},
+        {"offset": 20, "agent": 2, "step": 45, "scale": 2.583160638809204,
+         "scale_gt": 6.874547716161577, "ate2": 0.015409080311655998},
+        {"offset": 30, "agent": None, "step": None, "scale": None, "scale_gt": None,
+         "ate2": 0.3509232997894287},
+        {"offset": 40, "agent": 2, "step": 49, "scale": 7.185351848602295,
+         "scale_gt": 7.231428543454881, "ate2": 0.0018510018708184361},
+    ],
+    # (step, sender, channel) and (step, agent, "bows in", own keyframes,
+    # candidates found); keyframes on the host after each step
+    "events": [(45, 1, "new_key_frame_bows"), (45, 2, "bows in", 11, []),
+               (46, 2, "new_key_frame_bows"), (47, 1, "map_to_attempt_merge"),
+               (47, 1, "bows in", 12, [11]), (47, 2, "successfully_merged"),
+               (47, 2, "new_key_frames")],
+    "kf_steps": {1: [0, 0, 0, 0, 0, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 7,
+                     7, 7, 7, 8, 8, 8, 8, 9, 9, 9, 9, 10, 10, 10, 10, 11, 11, 11, 11, 12, 12, 12,
+                     24, 24, 24, 26],
+                 2: [0, 0, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6, 6,
+                     7, 7, 7, 7, 8, 8, 8, 8, 9, 9, 9, 9, 10, 10, 10, 10, 11, 11, 11, 11, 12, 26,
+                     26, 26, 26, 26]},
+}
+# phase 19: the point statistics `load_atlas` recomputes (`update_point_stats`)
+RECOMPUTED = ("pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist")
 
 # K1 against its twin: the same floats in the same order, so identical bits;
 # the angle may differ where atan2f and PyTorch's atan2 round differently
@@ -1107,6 +1199,278 @@ def check_phase17(runs, seq, counts, poses_gt, card):
     check(d <= POSE_ATOL2, f"S_ab differs by {d}")
 
 
+def scene18(device):
+    """Phase 18's frames: the dense world along an 80-frame trajectory,
+    rendered at the EuRoC settings' output size with their K."""
+    from dvm_slam_tpu_torch.io import synthetic
+
+    settings = euroc_settings(FPS18)
+    cam = settings.camera
+    world = synthetic.PlaneWorld(seed=7, tex_size=TEX_SIZE, plane_z=6.0, extent=36.0,
+                                 device=device, **DENSE_WORLD)
+    traj = synthetic.smooth_trajectory(80, **TRAJ18)
+    K = tuple(float(v) for v in cam.K())
+    return [world.render(p, K, cam.out_height, cam.out_width) for p in traj], traj
+
+
+def run_agents(device, use_kernel, imgs, traj, vocab, timed_sync):
+    """Phase 18: two `SlamAgent`s on one `LoopbackTransport`, each step one
+    `process_image` per agent, then flush() and the idle protocol
+    iterations. Autonomous records retire as soon as the next one is
+    dispatched (`_record_ready` true, as on the CPU). Returns (agents, bus,
+    record): the merges (agent, step, S_ab, the scale ground truth `traj`
+    implies for S_ab), the keyframe batches received, the BA window rows K2
+    saw, and per call (agent, step, kind, ms)."""
+    from dvm_slam_tpu_torch.mapping.local_mapping import LocalMapper
+    from dvm_slam_tpu_torch.multiagent.agent import SlamAgent
+    from dvm_slam_tpu_torch.multiagent.transport import LoopbackTransport
+    from dvm_slam_tpu_torch.ops import scatter
+    from dvm_slam_tpu_torch.placerec import vocabulary
+    from dvm_slam_tpu_torch.tracking import tracker as trk
+
+    settings = euroc_settings(FPS18)
+    cfg, K = settings.tracker_config(use_kernel), settings.camera.K()
+    voc = vocabulary.load(vocab)
+    bus = LoopbackTransport()
+    agents = {aid: SlamAgent(aid, cfg, K, np.zeros(4, np.float32), voc, bus, [1, 2],
+                             mapper=LocalMapper(**CONSOLE_MAPPER), device=device)
+              for aid in (1, 2)}
+    rec = dict(merges=[], splices=[], calls=[], ba_rows=set(), events=[])
+    cur = [0]
+    publish = bus.publish
+
+    def publishing(sender, target, channel, msg):
+        rec["events"].append((cur[0], sender, channel))
+        return publish(sender, target, channel, msg)
+
+    bus.publish = publishing
+    for a in agents.values():
+        a.tracker._record_ready = lambda r: True
+        do_merge, receive = a._do_merge, a._receive_new_key_frames
+        receive_bows = a._receive_new_key_frame_bows
+
+        def bows_in(m, a=a, receive_bows=receive_bows):
+            n_log = len(a.log)
+            receive_bows(m)
+            found = [e[2] for e in a.log[n_log:] if e[0] == "merge_candidates"]
+            rec["events"].append((cur[0], a.agent_id, "bows in", len(a._own_kf_slots()), found))
+
+        def merging(peer_id, mB, metaB, S_ab, weld_kf, a=a, do_merge=do_merge):
+            # both maps against ground truth just before the splice: with
+            # X_w = S_i X_i, S_ab = S_a^-1 S_b has the scale s_b / s_a
+            sides = [kf_alignment(x, traj) for x in (a, agents[peer_id])]
+            rec["merges"].append(dict(agent=a.agent_id, step=cur[0], S_ab=S_ab.cpu().numpy(),
+                                      sides=sides, scale_gt=sides[1][1] / sides[0][1]))
+            return do_merge(peer_id, mB, metaB, S_ab, weld_kf)
+
+        def receiving(m, a=a, receive=receive):
+            rec["splices"].append((a.agent_id, cur[0]))
+            return receive(m)
+
+        a._do_merge, a._receive_new_key_frames = merging, receiving
+        a._receive_new_key_frame_bows = bows_in
+    adjoint = scatter.onehot_adjoint
+
+    def adjoint_rows(v, pidx, P, use_kernel=None):
+        rec["ba_rows"].add(int(pidx.shape[0]))
+        return adjoint(v, pidx, P, use_kernel=use_kernel)
+
+    scatter.onehot_adjoint = adjoint_rows
+    try:
+        for step in range(N_STEPS18 + N_IDLE18):
+            cur[0] = step
+            if step == N_STEPS18:
+                for a in agents.values():
+                    a.flush()
+            for aid, (lo, _) in SEGMENTS18.items():
+                a = agents[aid]
+                if step >= N_STEPS18:
+                    a.run_once(step * 0.1)
+                    continue
+                t = a.tracker
+                was, n_kf0, n_m, n_s = t.state, int(t.map.n_kf), len(rec["merges"]), len(rec["splices"])
+                timed_sync()
+                t0 = time.perf_counter()
+                a.process_image(imgs[lo + step], step * 0.1)
+                timed_sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                if len(rec["merges"]) > n_m:
+                    kind = "merge"
+                elif len(rec["splices"]) > n_s:
+                    kind = "keyframes received"
+                elif was == trk.NOT_INITIALIZED:
+                    kind = "init" if t.state == trk.OK else "before init"
+                elif not t.autonomous:
+                    kind = "host path"
+                elif t._auto_imgs:
+                    kind = "buffered"
+                else:
+                    kind = "dispatch, keyframe" if int(t.map.n_kf) > n_kf0 else "dispatch"
+                rec["calls"].append((aid, step, kind, ms))
+                rec.setdefault("kf_steps", {1: [], 2: []})[aid].append(t.n_kf_host)
+    finally:
+        scatter.onehot_adjoint = adjoint
+    return agents, bus, rec
+
+
+def kf_alignment(agent, traj):
+    """An agent's map against ground truth (`tests/test_multiagent.py:
+    187-203`): the keyframe slots its tracker stamped, frame lo + ts * 10 of
+    its segment, aligned by a Sim3 (X_w = S X_map). Returns (ATE m, S's
+    scale, keyframes)."""
+    from dvm_slam_tpu_torch.eval import metrics
+
+    m, lo = agent.map, SEGMENTS18[agent.agent_id][0]
+    n = int(m.n_kf)
+    valid = m.kf_valid.cpu().numpy()
+    pose = m.kf_pose.cpu().numpy()
+    est, gt = [], []
+    for slot, ts in agent.tracker.kf_timestamps.items():
+        i = lo + int(round(ts * 10))
+        if slot < n and valid[slot] and i < len(traj):
+            est.append(pose[slot])
+            gt.append(np.asarray(traj[i]))
+    ate, _, S = metrics.ate_rmse(np.stack(est), np.stack(gt))
+    return float(ate), float(S[7]), len(est)
+
+
+def check_phase18(runs, counts, traj, card):
+    """Phase 18 against the JAX CPU reference of the same run, over its
+    spread of tracker draws (`JAX_REF7["spread"]`, fault o), and against
+    ground truth: both peers merged, agent 2 merging within MERGE_STEPS of
+    the spread's steps with S_ab's scale within SCALE_RTOL of the spread's
+    scales and of the scale that ground truth implies for the two maps
+    just before the splice, keyframes of the other agent in each map, agent
+    2 under robot1/origin and agent 1 under world, the global BA folded in,
+    the host mirrors in sync, agent 2's keyframe ATE under 3x the spread's
+    largest and ATE18_BOUND_M; K1-K3 launched, K2/K3 at the keyframe BA's
+    and the welding BA's windows; the plain path merging at the same step
+    with the same log kinds, S_ab to 1e-3."""
+    ref = JAX_REF7
+    print(f"[18] JAX CPU ref over tracker seed offsets (offset, merging agent, step, S_ab scale, "
+          f"its ground-truth scale, agent 2's keyframe ATE m): "
+          f"{[(r['offset'], r['agent'], r['step'], r['scale'], r['scale_gt'], r['ate2']) for r in ref['spread']]}")
+    spread = [r for r in ref["spread"] if r["step"] is not None]
+    steps = [r["step"] for r in spread]
+    scales = [r["scale"] for r in spread]
+    ate_ref = max(r["ate2"] for r in spread)
+    out = {}
+    for name, (agents, bus, rec) in runs.items():
+        a1, a2 = agents[1], agents[2]
+        merges = rec["merges"]
+        kinds = {aid: sorted({e[0] for e in a.log}) for aid, a in agents.items()}
+        by_creator = {}
+        for aid, a in agents.items():
+            n = int(a.map.n_kf)
+            valid = a.map.kf_valid[:n].cpu().numpy()
+            by_creator[aid] = {c: int((a.meta.kf_creator[:n][valid] == c).sum()) for c in (1, 2)}
+        ate, _, n_ate = kf_alignment(a2, traj)
+        latency = [e[1] for a in agents.values() for e in a.log if e[0] == "merge_latency_s"]
+        folds = [e[1] for a in agents.values() for e in a.log if e[0] == "gba_applied"]
+        print(f"[18] {name}: merges (agent, step, S_ab scale) "
+              f"{[(m['agent'], m['step'], round(float(m['S_ab'][7]), 5)) for m in merges]} "
+              f"(JAX CPU ref, offset 0: {[(m['agent'], m['step'], round(m['S_ab'][7], 5)) for m in ref['merges']]}); "
+              f"keyframes by creator {by_creator} (ref {ref['1']['by_creator']}, "
+              f"{ref['2']['by_creator']}); parents {a1.frames.parent_frame}, "
+              f"{a2.frames.parent_frame}; keyframe batches received {len(rec['splices'])}")
+        print(f"[18] {name}: log kinds {kinds} (ref {ref['1']['log_kinds']}, {ref['2']['log_kinds']})")
+        print(f"[18] {name}: protocol events (step, agent, channel | bows in: own keyframes, "
+              f"candidates) {rec['events']} (ref {ref['events']})")
+        print(f"[18] {name}: keyframes on the host after each step {rec['kf_steps']} (ref "
+              f"{ref['kf_steps']})")
+        print(f"[18] {name}: agent 2's keyframe ATE {ate:.6f} m over {n_ate} keyframes (ref "
+              f"{ref['ate2']:.6f} m over {ref['ate2_n']}); BA window rows {sorted(rec['ba_rows'])}; "
+              f"merge_latency_s {latency}; global BA dispatch to fold s {folds} on {card}")
+        groups = {}
+        for _, _, kind, ms in rec["calls"]:
+            groups.setdefault(kind, []).append(ms)
+        for kind, ms in sorted(groups.items()):
+            ms = np.asarray(ms)
+            p50, p90 = np.percentile(ms, [50, 90])
+            print(f"[18] {name}: process_image, {kind} calls: median {p50:.2f} ms, p90 {p90:.2f} ms,"
+                  f" max {ms.max():.2f} ms (n={len(ms)}) on {card}")
+        print(f"[18] {name}: bandwidth {bus.bandwidth_report()}")
+        check(a1.peers[2].successfully_merged and a2.peers[1].successfully_merged,
+              f"{name}: the peers did not both merge")
+        check(len(merges) >= 1 and merges[0]["agent"] == 2,
+              f"{name}: merges {[(m['agent'], m['step']) for m in merges]}")
+        check(min(steps) - MERGE_STEPS <= merges[0]["step"] <= max(steps) + MERGE_STEPS,
+              f"{name}: merged at step {merges[0]['step']}, JAX CPU ref steps {steps}")
+        scale, scale_gt = float(merges[0]["S_ab"][7]), merges[0]["scale_gt"]
+        print(f"[18] {name}: S_ab scale {scale:.5f}, ground truth implies {scale_gt:.5f} "
+              f"(off by {scale / scale_gt - 1:+.2%}); the maps just before the splice against "
+              f"ground truth (ATE m, Sim3 scale, keyframes): merging agent "
+              f"{merges[0]['sides'][0]}, its peer {merges[0]['sides'][1]}")
+        check((1 - SCALE_RTOL) * min(scales) <= scale <= (1 + SCALE_RTOL) * max(scales),
+              f"{name}: S_ab scale {scale}, JAX CPU ref scales {scales}")
+        check(abs(scale / scale_gt - 1) <= SCALE_RTOL,
+              f"{name}: S_ab scale {scale}, ground truth implies {scale_gt}")
+        check(by_creator[1][2] > 0 and by_creator[2][1] > 0,
+              f"{name}: keyframes not shared both ways {by_creator}")
+        check(a2.frames.parent_frame == "robot1/origin" and a1.frames.parent_frame == "world",
+              f"{name}: frame tree {a1.frames.parent_frame}, {a2.frames.parent_frame}")
+        check(bool(folds), f"{name}: the global BA never folded in")
+        check(a1.check_invariants() and a2.check_invariants(), f"{name}: invariants")
+        check(ate < min(3.0 * ate_ref, ATE18_BOUND_M),
+              f"{name}: agent 2's keyframe ATE {ate} m, JAX CPU ref up to {ate_ref} m")
+        out[name] = (merges[0]["step"], merges[0]["S_ab"], kinds)
+        if name == "kernels":
+            check({KF_BA_L, WELD_L} <= rec["ba_rows"],
+                  f"K2 saw BA windows {sorted(rec['ba_rows'])}, not {KF_BA_L} and {WELD_L}")
+    print(f"[18] launches: {counts}")
+    check(all(counts[k] > 0 for k in KERNELS), f"a kernel never launched in phase 18: {counts}")
+    (sk, Sk, kk), (sp, Sp, kp) = out["kernels"], out["plain"]
+    d = float(np.abs(Sk - Sp).max())
+    print(f"[18] plain path: merge step {sp} (kernels {sk}); S_ab differs by {d:.3e}")
+    check(sp == sk and kp == kk, "the paths merge at different steps or log other events")
+    check(d <= POSE_ATOL2, f"S_ab differs by {d}")
+
+
+def check_phase19(sysm, out_dir, device):
+    """Phase 19: `save_atlas` of phase 12's System, `load_atlas` into a fresh
+    System on the card. The loaded map carries every array of the saved
+    map's packet (the point statistics aside, which `load_atlas`
+    recomputes), the tracker state comes back, and a second save and load is
+    a fixed point: every MapState field equal."""
+    import torch
+
+    from dvm_slam_tpu_torch.models.system import System
+    from dvm_slam_tpu_torch.multiagent import codec
+
+    paths = [os.path.join(out_dir, f"phase19_{i}.atlas") for i in range(2)]
+    t0 = time.perf_counter()
+    sysm.save_atlas(paths[0])
+    t_save = time.perf_counter() - t0
+    saved = codec.MapPacket.from_bytes(sysm.serialize_map())
+    loaded, t_load = [], []
+    for i in range(2):
+        s = System(euroc_settings(), device=device)
+        t0 = time.perf_counter()
+        s.load_atlas(paths[i])
+        torch.cuda.synchronize()
+        t_load.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            s.save_atlas(paths[1])
+        loaded.append(s)
+    a, b = loaded
+    got = codec.MapPacket.from_bytes(a.serialize_map())
+    differ = [f for f in codec.MapPacket._fields if f not in RECOMPUTED
+              and not np.array_equal(getattr(got, f), getattr(saved, f))]
+    fixed = [f for f in a.map._fields if not torch.equal(getattr(a.map, f), getattr(b.map, f))]
+    ta, t = a.tracker, sysm.tracker
+    print(f"[19] checkpoint {os.path.getsize(paths[0])} bytes, {saved.n_kf} keyframes, {saved.n_pt} "
+          f"points; save {t_save * 1e3:.2f} ms, loads {np.round(t_load, 2).tolist()} ms; packet "
+          f"arrays that "
+          f"differ after the load {differ}; MapState fields that differ after a second round "
+          f"trip {fixed}")
+    check(not differ, f"the loaded map's packet differs in {differ}")
+    check(not fixed, f"a second save/load changes {fixed}")
+    check(ta.state == t.state and ta.n_kf_host == saved.n_kf
+          and torch.equal(ta.last_pose, t.last_pose.to(ta.last_pose.device))
+          and len(ta.trajectory) == len(t.trajectory),
+          "the tracker state did not come back")
+
+
 def main(kernels_only: bool = False) -> int:
     import torch
 
@@ -1488,6 +1852,32 @@ def main(kernels_only: bool = False) -> int:
     counts6["phase 17"] = counts17
     check_phase17(runs17, seq17, counts17, poses_all, card)
     phase_done(17)
+
+    # ---- 18. two SlamAgents merge: BoW advertisement, merge, essential graph,
+    # global BA, keyframe sharing, frame tree
+    imgs18, traj18 = scene18(dev)
+    runs18 = {}
+    for name, uk in (("kernels", None), ("plain", False)):
+        before = counts_now()
+        if name == "kernels":
+            orb_kernel.launches = scatter_kernel.launches_adjoint = 0
+            scatter_kernel.launches_gather = 0
+        t0 = time.perf_counter()
+        runs18[name] = run_agents(dev, uk, imgs18, traj18, vocab, torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        print(f"[18] {name}: {2 * N_STEPS18} frames and {N_IDLE18} idle rounds in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if name == "kernels":
+            counts18 = counts_now()
+        else:
+            check(counts_now() == before, "the plain path launched a kernel")
+    counts6["phase 18"] = counts18
+    check_phase18(runs18, counts18, traj18, card)
+    phase_done(18)
+
+    # ---- 19. the atlas checkpoint of phase 12's System, reloaded on the card
+    check_phase19(run3["system"], out_dir, dev)
+    phase_done(19)
     print(f"total {time.perf_counter() - t_start:.2f} s")
 
     errs = {"orb_describe": worst_ang, "onehot_adjoint": k2_err, "onehot_gather": k3_err}

@@ -13,10 +13,14 @@ counterpart is found by path and name:
               kernels in `ops/scatter_kernel.py` + `csrc/onehot_scatter.cu`)
   frontend/   `Frame` construction (`make_frame`, `make_frame_rgbd`)
   mapping/    struct-of-arrays `MapState`, the per-keyframe mapper chain
-              (cull, triangulate, fuse, windowed BA)
+              (cull, triangulate, fuse, windowed BA), global BA, the atlas
   tracking/   pose-only Gauss-Newton, two-stage tracking by projection, the
-              full per-frame step `autonomous_step`
-  io/         synthetic textured-plane world
+              full per-frame step `autonomous_step`, relocalization
+  placerec/   BoW vocabulary and keyframe database
+  loopclosing/ Sim3 solver, map merging, loop detection, essential graph
+  multiagent/ `SlamAgent`, the map codec, typed wire and transports
+  models/     the `System` facade
+  io/         synthetic textured-plane world, settings, trajectories
 
 Port-only glue: `device.py` (precision policy), `convert.py` (numpy-dict
 exchange of map, frame and config with the JAX package) and `_build.py`

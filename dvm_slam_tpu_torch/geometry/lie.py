@@ -1,16 +1,16 @@
 """SO(3) / SE(3) Lie groups as batched PyTorch functions.
 
-Port of the SO3/SE3 part of `dvm_slam_tpu/geometry/lie.py` and of the Sim3
-group operations that trajectory alignment and map merging need
-(`sim3_exp/log/retract`, the Sim3 tangent space, wait for the pose graph).
-`sim3_fold` is the port's name for the scale fold the reference writes out
-inline wherever a world-level Sim3 re-bases a pose. Same storage
+Port of `dvm_slam_tpu/geometry/lie.py`: SO3, SE3 and Sim3 with the Sim3
+tangent space (`sim3_exp/log/retract`) that the pose graph differentiates
+at zero. `sim3_fold` is the port's name for the scale fold the reference
+writes out inline wherever a world-level Sim3 re-bases a pose. Same storage
 conventions:
 
 * quaternion `[..., 4]` scalar-first `(w, x, y, z)`, unit norm;
 * SE3 `[..., 7]` = `(qw, qx, qy, qz, tx, ty, tz)`;
 * Sim3 `[..., 8]` = `(qw, qx, qy, qz, tx, ty, tz, s)`, scale stored directly;
-* se3 tangent `[..., 6]` = `(v, omega)`, translation part first.
+* se3 tangent `[..., 6]` = `(v, omega)`, translation part first;
+* sim3 tangent `[..., 7]` = `(v, omega, sigma)`, sigma = log s.
 
 Every function broadcasts over leading dims and is branch-free
 (`torch.where` with guarded denominators), as in the reference.
@@ -312,3 +312,63 @@ def sim3_s(S):
 
 def sim3_apply(S, p):
     return sim3_s(S)[..., None] * quat_rotate(sim3_q(S), p) + sim3_t(S)
+
+
+def _sim3_W(omega, sigma):
+    """The Sim(3) `W` matrix with t = W(omega, sigma) v in `sim3_exp`
+    (Strasdat's thesis / Sophus `sim3.hpp` closed forms), branch-free over
+    four regimes with the reference's truncated series and safe substitutes
+    (`th`, `sg`, `csafe`): every branch is evaluated, so the unselected ones
+    must stay finite for forward-mode derivatives at zero."""
+    theta2 = torch.sum(omega * omega, dim=-1)
+    s_theta = theta2 < 1e-8
+    s_sigma = torch.abs(sigma) < 1e-4
+    one = torch.ones_like(theta2)
+    th = torch.sqrt(torch.where(s_theta, one, theta2))
+    sg = torch.where(s_sigma, one, sigma)
+    es = torch.exp(sigma)
+
+    # C = (e^sigma - 1)/sigma
+    C = torch.where(s_sigma, 1.0 + 0.5 * sigma + sigma * sigma / 6.0, (es - 1.0) / sg)
+    # regime 1: theta small, sigma small (first order in sigma)
+    A11 = 0.5 + sigma / 3.0
+    B11 = 1.0 / 6.0 + sigma / 8.0
+    # regime 2: theta small, sigma not small
+    A10 = ((sg - 1.0) * es + 1.0) / (sg * sg)
+    B10 = ((0.5 * sg * sg - sg + 1.0) * es - 1.0) / (sg ** 3)
+    # regime 3: theta not small, sigma small
+    A01 = (1.0 - torch.cos(th)) / (th * th)
+    B01 = (th - torch.sin(th)) / (th ** 3)
+    # regime 4: general
+    a = es * torch.sin(th)
+    b = es * torch.cos(th)
+    c = theta2 + sigma * sigma
+    csafe = torch.where(c < _EPS, one, c)
+    A00 = (a * sg + (1.0 - b) * th) / (th * csafe)
+    B00 = (C - ((b - 1.0) * sg + a * th) / csafe) / (th * th)
+
+    A = torch.where(s_theta, torch.where(s_sigma, A11, A10), torch.where(s_sigma, A01, A00))
+    B = torch.where(s_theta, torch.where(s_sigma, B11, B10), torch.where(s_sigma, B01, B00))
+    K = hat(omega)
+    return C[..., None, None] * _eye3(omega) + A[..., None, None] * K + B[..., None, None] * (K @ K)
+
+
+def sim3_exp(xi):
+    """sim3 tangent [...,7] = (v, omega, sigma) -> Sim3 [...,8]."""
+    v, omega, sigma = xi[..., 0:3], xi[..., 3:6], xi[..., 6]
+    q = so3_exp(omega)
+    t = (_sim3_W(omega, sigma) @ v[..., None])[..., 0]
+    return torch.cat([q, t, torch.exp(sigma)[..., None]], dim=-1)
+
+
+def sim3_log(S):
+    """Sim3 [...,8] -> sim3 tangent [...,7]; one batched 3x3 solve."""
+    omega = so3_log(sim3_q(S))
+    sigma = torch.log(torch.clamp(sim3_s(S), min=_EPS))
+    v = torch.linalg.solve(_sim3_W(omega, sigma), sim3_t(S)[..., :, None])[..., 0]
+    return torch.cat([v, omega, sigma[..., None]], dim=-1)
+
+
+def sim3_retract(S, xi):
+    """Left-multiplicative retraction exp(xi) * S (the pose graph's update)."""
+    return sim3_mul(sim3_exp(xi), S)

@@ -1,8 +1,9 @@
 """Windowed Levenberg-Marquardt bundle adjustment with Schur complement.
 
-Port of the monocular path of `dvm_slam_tpu/mapping/ba.py::bundle_adjust`
-(`Optimizer::LocalBundleAdjustment` semantics). Stereo rows (`kf_ur`/`bf`)
-wait for the sensor-mode slice and `bundle_adjust_pcg` for global BA.
+Port of the monocular paths of `dvm_slam_tpu/mapping/ba.py`:
+`bundle_adjust` (`Optimizer::LocalBundleAdjustment` semantics) and
+`bundle_adjust_pcg`, the full-map solve of global BA. Stereo rows
+(`kf_ur`/`bf`) wait for the sensor-mode slice.
 
 Same layout as the reference: observation-indexed tensors keep F or P last
 (camera Jacobian planes [6,L,F], point planes [3,L,F], point blocks
@@ -20,6 +21,14 @@ never waits for the host.
 
 The bf16 adjoint of the reference is TPU-only; the port holds BA to the
 f32 CPU reference.
+
+`bundle_adjust_pcg` keeps both of the reference's Schur strategies with the
+port's own rule: the dense coupling [L,P,6,3] (one `index_put_` per LM step,
+every Schur product a matmul, the reduced system solved by block-Jacobi
+PCG) while it takes at most `DENSE_W_MAX_BYTES` (1 GiB, a small share of
+the card's 80 GB), else the matrix-free PCG whose matvecs scatter per
+observation (`index_add_`). Neither calls K2 or K3: the reference computes
+global BA outside Pallas.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..ops import scatter
 
 CHI2_MONO = 5.991
 HUBER_DELTA = math.sqrt(CHI2_MONO)
+DENSE_W_MAX_BYTES = 1 << 30
 
 
 def _block_jacobi_pcg(Sm, Minv_d, r0, iters: int):
@@ -279,3 +289,173 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
     inliers = obs_valid & (chi2 <= CHI2_MONO) & (z > 0)
     total = torch.sum(torch.where(inliers, chi2, 0.0))
     return best_poses, best_points.T, total, inliers
+
+
+def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
+                      kf_ur=None, bf=None, lm_iters: int = 8, pcg_iters: int = 40,
+                      stage2_iters: int = 4, damping: float = 1e-4, dense=None):
+    """Full-map BA over observation lists: LM with deferred acceptance and
+    PCG on the reduced camera system S = H_cc - W H_pp^-1 W^T, two stages
+    (outlier edges dropped after the first), as the reference. Same
+    arguments as `bundle_adjust`; `dense` picks the Schur strategy (None:
+    dense while the coupling takes at most DENSE_W_MAX_BYTES). Returns
+    (kf_pose', pts', total_chi2, inlier_mask [L,F])."""
+    if kf_ur is not None or bf is not None:
+        raise NotImplementedError("stereo BA rows are not ported")
+    L, F = obs_pt.shape
+    P = pts.shape[0]
+    dtype, dev = pts.dtype, pts.device
+    O = L * F
+    if dense is None:
+        dense = L * P * 72 <= DENSE_W_MAX_BYTES
+
+    okf = torch.arange(L, device=dev).repeat_interleave(F)                 # [O]
+    opt_row = obs_pt.reshape(O)
+    ovalid0 = opt_row >= 0
+    optc = torch.clamp(opt_row, min=0).to(torch.int64)
+    ouv = kf_xy.reshape(O, 2)
+    oinfo = (1.0 / torch.clamp(kf_sigma2, min=1e-12)).reshape(O)
+    free_cam = (~kf_fixed).to(dtype)
+    fixed_f = kf_fixed.to(dtype)
+    popt = pt_opt.to(dtype)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    ii = torch.arange(L, device=dev)
+    vmask3 = ovalid0.to(dtype)
+
+    def residuals(poses, points):
+        X = points[optc]
+        pc = lie.quat_rotate(lie.se3_q(poses)[okf], X) + lie.se3_t(poses)[okf]
+        x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+        inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+        ru = ouv[:, 0] - (K[0] * x * inv_z + K[2])
+        rv = ouv[:, 1] - (K[1] * y * inv_z + K[3])
+        return ru, rv, x, y, z, inv_z
+
+    def robust_cost(chi2, active):
+        rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        rho = torch.where(rn <= HUBER_DELTA, chi2,
+                          2.0 * HUBER_DELTA * rn - HUBER_DELTA * HUBER_DELTA)
+        return torch.sum(rho * active)
+
+    def scatter_p(v):
+        out = torch.zeros((P,) + v.shape[1:], dtype=dtype, device=dev)
+        return out.index_add_(0, optc, v)
+
+    def schur_step(poses, Ju, Jv, Pu, Pv, w, ru, rv, lam):
+        """One damped Gauss-Newton step (dc [L,6], dp [P,3])."""
+        ccv = w[:, None, None] * (Ju[:, :, None] * Ju[:, None, :] + Jv[:, :, None] * Jv[:, None, :])
+        bcv = w[:, None] * (Ju * ru[:, None] + Jv * rv[:, None])
+        hpv = w[:, None, None] * (Pu[:, :, None] * Pu[:, None, :] + Pv[:, :, None] * Pv[:, None, :])
+        bpv = w[:, None] * (Pu * ru[:, None] + Pv * rv[:, None])
+        Wo = w[:, None, None] * (Ju[:, :, None] * Pu[:, None, :] + Jv[:, :, None] * Pv[:, None, :])
+        Hcc = ccv.reshape(L, F, 6, 6).sum(dim=1)
+        bc = bcv.reshape(L, F, 6).sum(dim=1)
+        Hpp = scatter_p(hpv * vmask3[:, None, None])
+        bp = scatter_p(bpv * vmask3[:, None])
+
+        trp = torch.einsum("pii->p", Hpp)
+        Hpp_d = Hpp + (lam * (1.0 + trp / 3.0))[:, None, None] * eye3
+        empty = (trp < 1e-12)[:, None, None]
+        Hpp_inv = torch.where(empty, 0.0, inv3x3(torch.where(empty, eye3, Hpp_d)))
+        Hcc_d = Hcc + (lam * (1.0 + torch.einsum("lii->l", Hcc) / 6.0))[:, None, None] * eye6
+        Hcc_d = torch.where(kf_fixed[:, None, None], eye6, Hcc_d)
+
+        if dense:
+            Wd = torch.zeros((L, P, 6, 3), dtype=dtype, device=dev)
+            Wd.index_put_((okf, optc), Wo * vmask3[:, None, None], accumulate=True)
+            A = (Wd @ Hpp_inv[None]).permute(0, 2, 1, 3).reshape(L * 6, P * 3)
+            B = Wd.permute(0, 2, 1, 3).reshape(L * 6, P * 3)
+            S = -(A @ B.T).reshape(L, 6, L, 6)
+            S[ii, :, ii, :] += Hcc_d
+            fix2 = kf_fixed[:, None] | kf_fixed[None, :]
+            S = torch.where(fix2[:, None, :, None], 0.0, S)
+            S[ii, :, ii, :] += fixed_f[:, None, None] * eye6
+            rhs = -(bc - (A @ bp.reshape(-1)).reshape(L, 6)) * free_cam[:, None]
+            Minv_d = _inv6x6_block(S[ii, :, ii, :])
+            dc = _block_jacobi_pcg(S.reshape(L * 6, L * 6), Minv_d, rhs.reshape(-1),
+                                   pcg_iters).reshape(L, 6)
+            dc = torch.where(torch.isfinite(dc), dc, 0.0) * free_cam[:, None]
+            WTdc = (dc.reshape(1, -1) @ B).reshape(P, 3)
+        else:
+            def WT_x(xc):      # [L,6] -> [P,3]: W^T x, scattered per observation
+                v = torch.einsum("oij,oi->oj", Wo, xc[okf])
+                return scatter_p(v * vmask3[:, None])
+
+            def W_u(u):        # [P,3] -> [L,6]
+                g = torch.einsum("oij,oj->oi", Wo, u[optc]) * vmask3[:, None]
+                return torch.zeros((L, 6), dtype=dtype, device=dev).index_add_(0, okf, g)
+
+            def S_mv(xc):      # the reduced camera system's matvec
+                Hx = torch.einsum("lij,lj->li", Hcc_d, xc)
+                u = torch.einsum("pij,pj->pi", Hpp_inv, WT_x(xc))
+                return (Hx - W_u(u)) * free_cam[:, None] + xc * fixed_f[:, None]
+
+            rhs = -(bc - W_u(torch.einsum("pij,pj->pi", Hpp_inv, bp))) * free_cam[:, None]
+            Minv = _inv6x6_block(Hcc_d)
+            xk = torch.zeros((L, 6), dtype=dtype, device=dev)
+            rk = rhs
+            zk = torch.einsum("lij,lj->li", Minv, rk)
+            pk = zk
+            rz = torch.sum(rk * zk)
+            for _ in range(pcg_iters):
+                Ap = S_mv(pk)
+                alpha = rz / torch.clamp(torch.sum(pk * Ap), min=1e-30)
+                xk = xk + alpha * pk
+                rk = rk - alpha * Ap
+                zk = torch.einsum("lij,lj->li", Minv, rk)
+                rzn = torch.sum(rk * zk)
+                pk = zk + (rzn / torch.clamp(rz, min=1e-30)) * pk
+                rz = rzn
+            dc = torch.where(torch.isfinite(xk), xk, 0.0) * free_cam[:, None]
+            WTdc = WT_x(dc)
+        dp = torch.einsum("pij,pj->pi", Hpp_inv, -(bp + WTdc))
+        dp = torch.where(torch.isfinite(dp), dp, 0.0) * popt[:, None]
+        return dc, dp
+
+    def run_stage(poses, points, active, n):
+        """n + 1 LM steps with deferred acceptance (see `bundle_adjust`);
+        returns the best accepted state."""
+        best_poses, best_points = poses, points
+        best_cost = torch.full((), math.inf, dtype=dtype, device=dev)
+        lam = torch.full((), damping, dtype=dtype, device=dev)
+        for _ in range(n + 1):
+            ru, rv, x, y, z, inv_z = residuals(poses, points)
+            chi2 = (ru * ru + rv * rv) * oinfo
+            cost_cur = robust_cost(chi2, active)
+            reject = ~(cost_cur <= best_cost)        # a non-finite cost counts as worse
+            best_cost = torch.where(reject, best_cost, cost_cur)
+            best_poses = torch.where(reject, best_poses, poses)
+            best_points = torch.where(reject, best_points, points)
+            lam = torch.clamp(torch.where(reject, lam * 4.0, lam * 0.5), 1e-7, 1e3)
+            rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+            w = oinfo * active * torch.clamp(HUBER_DELTA / rn, max=1.0) * (z > 0)
+
+            a00 = K[0] * inv_z
+            a02 = -K[0] * x * inv_z * inv_z
+            a11 = K[1] * inv_z
+            a12 = -K[1] * y * inv_z * inv_z
+            zero = torch.zeros_like(x)
+            Ju = torch.stack([-a00, zero, -a02, -a02 * y, -a00 * z + a02 * x, a00 * y], -1)
+            Jv = torch.stack([zero, -a11, -a12, a11 * z - a12 * y, a12 * x, -a11 * x], -1)
+            Ju = Ju * free_cam[okf, None]
+            Jv = Jv * free_cam[okf, None]
+            Rm = lie.quat_to_matrix(lie.se3_q(poses))[okf]
+            Pu = -(Rm[:, 0, :] * a00[:, None] + Rm[:, 2, :] * a02[:, None]) * popt[optc, None]
+            Pv = -(Rm[:, 1, :] * a11[:, None] + Rm[:, 2, :] * a12[:, None]) * popt[optc, None]
+            dc, dp = schur_step(poses, Ju, Jv, Pu, Pv, w, ru, rv, lam)
+            poses = torch.where(reject, best_poses, lie.se3_retract(poses, dc))
+            points = torch.where(reject, best_points, points + dp)
+        return best_poses, best_points
+
+    poses, points = run_stage(kf_pose, pts, ovalid0.to(dtype), lm_iters)
+    # stage 2: drop the outlier edges, re-optimize (the reference's two stages)
+    ru, rv, _, _, z, _ = residuals(poses, points)
+    chi2 = (ru * ru + rv * rv) * oinfo
+    stage2 = ovalid0 & (chi2 <= CHI2_MONO) & (z > 0)
+    poses, points = run_stage(poses, points, stage2.to(dtype), stage2_iters)
+    ru, rv, _, _, z, _ = residuals(poses, points)
+    chi2 = (ru * ru + rv * rv) * oinfo
+    inliers = ovalid0 & (chi2 <= CHI2_MONO) & (z > 0)
+    total = torch.sum(torch.where(inliers, chi2, 0.0))
+    return poses, points, total, inliers.reshape(L, F)

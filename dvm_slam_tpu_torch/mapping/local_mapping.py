@@ -4,9 +4,10 @@ and windowed BA, per new keyframe.
 Port of the per-keyframe chain of `dvm_slam_tpu/mapping/local_mapping.py`
 (`LocalMapping.cc` semantics): `cull_points`, `create_new_points`,
 `fuse_duplicates`, `_compact_obs`, `local_ba` (monocular, with the
-two-camera gauge pin), `_mapper_step` / `_mapper_chain` and the visual part
-of the host `LocalMapper`. `local_ba_batched`, `global_ba`,
-`apply_gba_correction` and the inertial stages wait for later slices.
+two-camera gauge pin), `_mapper_step` / `_mapper_chain`, the visual part
+of the host `LocalMapper`, and the post-merge `global_ba` with
+`apply_gba_correction`. `local_ba_batched` and the inertial stages wait for
+later slices.
 
 Three rules keep the outputs equal to the reference's:
 
@@ -393,6 +394,89 @@ def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int =
     kf_obs = torch.where((wpos_all >= 0)[:, None],
                          new_rows[torch.clamp(wpos_all, min=0).to(torch.int64)], m.kf_obs)
     return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, kf_obs=kf_obs), chi2
+
+
+def global_ba(m: map_state.MapState, K, n_kf_max: int | None = None, n_pts: int | None = None,
+              iters: int = 10, n_levels: int = 8, scale_factor: float = 1.2, bf=None):
+    """Global BA (`Optimizer::GlobalBundleAdjustemnt`, spawned after a
+    merge by `LoopClosing::RunGlobalBundleAdjustment`) with
+    `ba.bundle_adjust_pcg`. The full keyframe and point capacity by default;
+    `n_kf_max`/`n_pts` cap the problem to a slot prefix and the `n_pts` best
+    observed points. Keyframe 0 is the gauge, and a monocular map pins the
+    second-oldest valid keyframe too (the Sim(3) scale). Returns (map, chi2)."""
+    if bf is not None:
+        raise NotImplementedError("stereo BA rows are not ported")
+    dev = m.pt_pos.device
+    i32 = torch.int32
+    scales = _level_scales(n_levels, scale_factor, dev)
+    sigma2_lv = scales * scales
+    P = m.pt_capacity
+    n_kf_max = m.kf_capacity if n_kf_max is None else n_kf_max
+    n_pts = P if n_pts is None else n_pts
+
+    rows = torch.arange(n_kf_max, dtype=i32, device=dev)
+    rmask = m.kf_valid[:n_kf_max]
+    fixed = (rows == 0) | ~rmask
+    ids = torch.where(rmask & (rows != 0), rows, 2 ** 30)
+    fixed = fixed | (rows == torch.min(ids))
+
+    obs = m.kf_obs[:n_kf_max]
+    if n_pts >= P:
+        # the full point table: observation rows index pt_pos directly
+        obs_pt = torch.where(rmask[:, None] & (obs >= 0)
+                             & m.pt_valid[torch.clamp(obs, min=0).to(torch.int64)], obs, -1)
+        pts0, pt_opt, sel = m.pt_pos, m.pt_valid, None
+    else:
+        nobs = map_state.point_observers(m)
+        _, sel = _top_k(torch.where(m.pt_valid, nobs.to(torch.float32), 0.0), n_pts)
+        sel_ok = m.pt_valid[sel]
+        inv = map_state.scatter_set_last(torch.full((P + 1,), -1, dtype=i32, device=dev),
+                                         torch.where(sel_ok, sel, P),
+                                         torch.arange(n_pts, dtype=i32, device=dev))
+        obs_pt_g = torch.where(rmask[:, None], obs, -1)
+        obs_pt = torch.where(obs_pt_g >= 0, inv[torch.clamp(obs_pt_g, min=0).to(torch.int64)], -1)
+        pts0, pt_opt = m.pt_pos[sel], sel_ok
+
+    new_poses, new_pts, chi2, _ = ba.bundle_adjust_pcg(
+        m.kf_pose[:n_kf_max], fixed, m.kf_xy[:n_kf_max],
+        sigma2_lv[m.kf_level[:n_kf_max].to(torch.int64)], obs_pt.to(i32), pts0, pt_opt, K,
+        lm_iters=iters)
+    upd = rmask & ~fixed
+    kf_pose = m.kf_pose.clone()
+    kf_pose[:n_kf_max] = torch.where(upd[:, None], new_poses, m.kf_pose[:n_kf_max])
+    if sel is None:
+        pt_pos = torch.where(m.pt_valid[:, None], new_pts, m.pt_pos)
+    else:
+        # the unselected rows all land in the padding row, which is dropped
+        ppad = torch.cat([m.pt_pos, torch.zeros((1, 3), dtype=m.pt_pos.dtype, device=dev)])
+        ppad[torch.where(sel_ok, sel, P)] = torch.where(sel_ok[:, None], new_pts,
+                                                         ppad[torch.where(sel_ok, sel, P)])
+        pt_pos = ppad[:-1]
+    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos), chi2
+
+
+def apply_gba_correction(m: map_state.MapState, res_pose, res_pt, n_kf_snap, n_pt_snap, anchor):
+    """Fold a global-BA result computed on a snapshot back into the live map,
+    which may have grown since (the catch-up of `RunGlobalBundleAdjustment`):
+    snapshot keyframes (< n_kf_snap) take the optimized poses, newer ones
+    T' = T T_anchor_live^-1 T_anchor_gba; snapshot points take the optimized
+    positions, newer ones re-project through their reference keyframe,
+    x' = T_ref_new^-1 (T_ref_old x)."""
+    dev = m.pt_pos.device
+    Kc, Pc = m.kf_capacity, m.pt_capacity
+    anchor = int(anchor)
+    old_kf = (torch.arange(Kc, device=dev) < int(n_kf_snap)) & m.kf_valid
+    corr = lie.se3_mul(lie.se3_inv(m.kf_pose[anchor]), res_pose[anchor])
+    prop = lie.se3_mul(m.kf_pose, corr[None])
+    kf_pose = torch.where(old_kf[:, None], res_pose,
+                          torch.where(m.kf_valid[:, None], prop, m.kf_pose))
+
+    old_pt = (torch.arange(Pc, device=dev) < int(n_pt_snap)) & m.pt_valid
+    ref = torch.clamp(m.pt_ref_kf, 0, Kc - 1).to(torch.int64)
+    reproj = lie.se3_apply(lie.se3_inv(kf_pose[ref]), lie.se3_apply(m.kf_pose[ref], m.pt_pos))
+    pt_pos = torch.where(old_pt[:, None], res_pt,
+                         torch.where(m.pt_valid[:, None], reproj, m.pt_pos))
+    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos)
 
 
 # --------------------------------------------------------------------------

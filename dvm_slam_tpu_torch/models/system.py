@@ -11,23 +11,27 @@ With `vocabulary_file` (e.g. `data/voc_default.npz`) the tracker gets
 relocalization and the multi-map atlas: a new map on persistent LOST and the
 merge-back into a stored map on a later keyframe.
 
-Paths that need modules not ported yet raise `NotImplementedError` naming
-their ROADMAP item: the other sensor modes (13), the viewer (14), and map
-serialization and the atlas checkpoint (11, which ports `codec` and
-`wirecodec`).
+`serialize_map` gives the map packet of the multi-agent wire, and
+`save_atlas`/`load_atlas` a checkpoint in the JAX package's format. Paths
+that need modules not ported yet raise `NotImplementedError` naming their
+ROADMAP item: the other sensor modes (13) and the viewer (14).
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..geometry import lie
 from ..io import config as config_mod
 from ..io import trajectory as traj_mod
+from ..loopclosing import merge as merge_mod
 from ..mapping import atlas as atlas_mod
-from ..mapping import local_mapping
+from ..mapping import local_mapping, map_state
+from ..multiagent import codec, wirecodec
 from ..ops import pyramid
 from ..placerec import vocabulary
 from ..tracking import relocalization
@@ -122,13 +126,69 @@ class System:
     # -- map exchange and checkpoint --------------------------------------
 
     def serialize_map(self, own_only: bool = False) -> bytes:
-        raise _not_ported("map serialization (multiagent/codec.py)", "11")
+        """The active map as a `MapPacket` blob (`System.cc:1382-1426`), the
+        keyframes this agent created only with `own_only`."""
+        self.tracker.drain_auto()
+        self.tracker.flush_meta()
+        n = int(self.map.n_kf)
+        mask = self.map.kf_valid.cpu().numpy().copy()
+        mask[n:] = False
+        if own_only:
+            mask &= self.tracker.meta.kf_creator == self.agent_id
+        return codec.extract_submap(self.map, self.tracker.meta, mask).to_bytes()
 
     def save_atlas(self, path: str):
-        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "11")
+        """Atlas checkpoint (`System::SaveAtlas`): the map packet, the
+        tracker continuation and identity, in the typed `wirecodec` (data,
+        never code), behind an md5 line that detects corruption (it does not
+        authenticate). The format is the JAX package's: a checkpoint of
+        either package loads in the other."""
+        t = self.tracker
+        state = {
+            "map": self.serialize_map(own_only=False),
+            "last_pose": t.last_pose.cpu().numpy(),
+            "velocity": t.velocity.cpu().numpy(),
+            "state": t.state,
+            "kf_timestamps": t.kf_timestamps,
+            "agent_id": self.agent_id,
+            "trajectory": [(ts, np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p), st)
+                           for ts, p, st in t.trajectory],
+        }
+        payload = wirecodec.dumps(state)
+        with open(path, "wb") as f:
+            f.write(hashlib.md5(payload).hexdigest().encode() + b"\n")
+            f.write(payload)
 
     def load_atlas(self, path: str):
-        raise _not_ported("the atlas checkpoint (codec, wirecodec)", "11")
+        """Restore a `save_atlas` checkpoint: the packet is spliced into the
+        (empty) tracker map, so the settings' capacities hold."""
+        with open(path, "rb") as f:
+            digest = f.readline().strip()
+            payload = f.read()
+        if hashlib.md5(payload).hexdigest().encode() != digest:
+            raise IOError(f"atlas checksum mismatch: {path}")
+        state = wirecodec.loads(payload)
+        fc = self.settings.frontend_config()
+        mB, metaB = codec.materialize(codec.MapPacket.from_bytes(state["map"]), fc.capacity,
+                                      device=self.device)
+        t = self.tracker
+        merged, meta, kf_map, _ = merge_mod.merge_maps(
+            t.map, t.meta, mB, metaB, lie.sim3_identity(device=self.device))
+        merged = map_state.update_point_stats(merged, fc.n_levels, fc.scale_factor)
+        t.map = merged
+        t.meta = meta
+        t.n_kf_host = int(merged.n_kf)
+        t.map_epoch += 1
+        t.last_pose = torch.as_tensor(np.asarray(state["last_pose"], np.float32),
+                                      device=self.device)
+        t.velocity = torch.as_tensor(np.asarray(state["velocity"], np.float32),
+                                     device=self.device)
+        t.state = state["state"]
+        t.kf_timestamps = {(int(kf_map[k]) if int(kf_map[k]) >= 0 else k): v
+                           for k, v in state["kf_timestamps"].items()}
+        t.trajectory = state["trajectory"]
+        t.last_kf_slot = int(merged.n_kf) - 1
+        t.ref_kf_tracked = 30
 
     # -- trajectory export -----------------------------------------------
 

@@ -392,6 +392,7 @@ class MonocularTracker:
             raise _not_ported(f"camera model {config.camera_model!r}", 13)
         self.device = torch.device(device)
         self.config = config
+        self.inertial = False    # the visual tracker only (the constructor refuses IMU)
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
         self.dist = torch.as_tensor(np.asarray(dist, np.float32), device=self.device)
         self._last_good_ts = None
@@ -896,6 +897,19 @@ class MonocularTracker:
             # the mapper's BA may have moved the keyframe: return its pose
             return self.last_pose
         return res.T_cw
+
+    def rebase_history(self, S):
+        """Re-base the recorded trajectory by a world-level Sim3 (the agent's
+        frame changed after a merge or a scale alignment), so the history
+        stays in one frame: T' = fold(sim3(T) S^-1), all rows in one batch."""
+        if not self.trajectory:
+            return
+        S = torch.as_tensor(np.asarray(S.cpu() if isinstance(S, torch.Tensor) else S, np.float32),
+                            device=self.device)
+        T = torch.stack([torch.as_tensor(T, dtype=torch.float32, device=self.device)
+                         for _, T, _ in self.trajectory])
+        T2 = lie.sim3_fold(lie.sim3_mul(lie.sim3_from_se3(T), lie.sim3_inv(S)[None]))
+        self.trajectory = [(ts, T2[i], st) for i, (ts, _, st) in enumerate(self.trajectory)]
 
     def _atlas_due(self) -> bool:
         """`Tracking::CreateMapInAtlas`'s trigger: persistent LOST (5 lost

@@ -299,7 +299,15 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.placerec.vocabulary, dvm_slam_tpu_torch.placerec.database, "
                 "dvm_slam_tpu_torch.geometry.pnp, dvm_slam_tpu_torch.tracking.relocalization, "
                 "dvm_slam_tpu_torch.loopclosing.sim3_solver, "
-                "dvm_slam_tpu_torch.loopclosing.merge, dvm_slam_tpu_torch.mapping.atlas; "
+                "dvm_slam_tpu_torch.loopclosing.merge, dvm_slam_tpu_torch.mapping.atlas, "
+                "dvm_slam_tpu_torch.loopclosing.pose_graph, "
+                "dvm_slam_tpu_torch.loopclosing.loop_detector, "
+                "dvm_slam_tpu_torch.multiagent.messages, dvm_slam_tpu_torch.multiagent.wirecodec, "
+                "dvm_slam_tpu_torch.multiagent.transport, "
+                "dvm_slam_tpu_torch.multiagent.socket_transport, "
+                "dvm_slam_tpu_torch.multiagent.peer, dvm_slam_tpu_torch.multiagent.codec, "
+                "dvm_slam_tpu_torch.multiagent.reference_frames, "
+                "dvm_slam_tpu_torch.multiagent.agent; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
                 "or m == 'yaml' or m.startswith('yaml.')]; "
@@ -307,6 +315,22 @@ class TestPortContracts:
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                               text=True, timeout=120)
         assert proc.returncode == 0, proc.stdout + proc.stderr
+
+    def test_chip_smoke_leaves_jax_out(self):
+        """`chip_smoke.py` without a card exits non-zero before any result
+        line, and neither it nor the port modules its phases import pull in
+        JAX, the JAX package or yaml."""
+        code = ("import sys; sys.argv = ['chip_smoke.py']; import chip_smoke; "
+                "rc = chip_smoke.main(); "
+                "import dvm_slam_tpu_torch.multiagent.agent, dvm_slam_tpu_torch.models.system; "
+                "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+                "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
+                "or m == 'yaml' or m.startswith('yaml.')]; "
+                "print(rc, bad); sys.exit(0 if rc != 0 and not bad else 1)")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert '"ok"' not in proc.stdout
 
     def test_import_sets_precision_policy(self):
         assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -664,6 +688,149 @@ def _reference_slice6_main():
     print(json.dumps(slice6_summary(json.loads(json.dumps(out)), poses)))
 
 
+# Slice 7: two SlamAgents (chip_smoke.py phase 18). Agent 1 takes frames
+# 0..51 and agent 2 frames 28..79 of one trajectory over the dense world,
+# one frame each per step, stamped step / 10; then flush() and 6 protocol
+# iterations, as tests/test_multiagent.py:139-161.
+FPS7 = 4.0                                 # a keyframe at least every 4 frames
+SEGMENTS7 = {1: (0, 52), 2: (28, 80)}
+N_STEPS7, N_IDLE7 = 52, 6
+CONSOLE_MAPPER = dict(n_neighbors=4, ba_local=8, ba_fixed=8, ba_pts=2048, ba_iters=6)
+
+
+def slice7_world(synthetic):
+    """(world, trajectory) of phase 18 from either package's `synthetic`."""
+    world = synthetic.PlaneWorld(seed=7, tex_size=2048, plane_z=6.0, extent=36.0, **DENSE_WORLD)
+    return world, synthetic.smooth_trajectory(80, lateral=2.2, forward=0.6, yaw=0.08)
+
+
+def _host_np(a, dtype=None):
+    return np.asarray(a.cpu() if hasattr(a, "cpu") else a, dtype)
+
+
+def agent_keyframes(m, kf_timestamps, lo, traj):
+    """(estimated, ground-truth) world->camera poses of a map's valid
+    keyframe slots, matched by timestamp (frame lo + ts * 10)."""
+    n = int(m.n_kf)
+    valid = _host_np(m.kf_valid)
+    est, gt = [], []
+    for slot, ts in kf_timestamps.items():
+        i = lo + int(round(ts * 10))
+        if slot < n and valid[slot] and i < len(traj):
+            est.append(_host_np(m.kf_pose[slot], np.float32))
+            gt.append(np.asarray(traj[i]))
+    return np.stack(est), np.stack(gt)
+
+
+def agents_keyframe_ate(agent, traj, metrics):
+    """Sim3-aligned keyframe ATE of agent 2's map against ground truth
+    (`tests/test_multiagent.py:187-203`): keyframe slots by timestamp."""
+    est, gt = agent_keyframes(agent.map, agent.tracker.kf_timestamps, SEGMENTS7[2][0], traj)
+    return float(metrics.ate_rmse(est, gt)[0]), len(est)
+
+
+def merge_scale_gt(maps, traj, metrics):
+    """The scale of S_ab that ground truth implies at a merge: `maps` holds
+    (map, kf_timestamps, first frame) of the merging agent a and of its peer
+    b, each aligned to ground truth by a Sim3 over its keyframes (X_w = S_i
+    X_i), so S_ab = S_a^-1 S_b and its scale is s_b / s_a."""
+    s_a, s_b = (float(metrics.ate_rmse(*agent_keyframes(m, ts, lo, traj))[2][7])
+                for m, ts, lo in maps)
+    return s_b / s_a
+
+
+def _reference_slice7_main(seed_offset: int = 0):
+    """The JAX package's CPU reference of phase 18: two `SlamAgent`s at
+    `configs/euroc.yaml`'s tracker settings with camera.fps FPS7, the
+    console's mapper and the shipped vocabulary, on one loopback bus.
+    Prints the merge step, S_ab and the scale ground truth implies for it,
+    the log kinds, keyframe counts by creator, the frame tree and agent 2's
+    keyframe ATE as one JSON object (`chip_smoke.py`'s JAX_REF7).
+    Asynchronous results count as landed on
+    the next call (autonomous records, protocol records, the global BA), as
+    the smoke's synchronized calls see them on the card (fault s). The
+    trackers draw their two-view RANSAC from PRNGKey(agent id +
+    `seed_offset`): which frames initialize, and with them when each agent
+    reaches 12 keyframes and which agent finds the merge candidates, depend
+    on those draws (fault o), so the smoke holds the card to the spread over
+    offsets 0, 10, 20 and 30 (`--seed-offset N`)."""
+    from dvm_slam_tpu.eval import metrics as jmetrics
+    from dvm_slam_tpu.mapping import local_mapping as jlm
+    from dvm_slam_tpu.multiagent import agent as jagent
+    from dvm_slam_tpu.multiagent import transport as jtransport
+    from dvm_slam_tpu.placerec import vocabulary as jvoc
+
+    d = euroc_settings_dict()
+    d["camera"]["fps"] = FPS7
+    settings = jax_settings(d)
+    cfg, K = settings.tracker_config(), settings.camera.K()
+    h, w = cfg.frontend.height, cfg.frontend.width
+    world, traj = slice7_world(jsyn)
+    voc = jvoc.load(os.path.join(REPO, "data", "voc_default.npz"))
+    bus = jtransport.LoopbackTransport()
+    agents = {aid: jagent.SlamAgent(aid, cfg, K, np.zeros(4, np.float32), voc, bus, [1, 2],
+                                    mapper=jlm.LocalMapper(**CONSOLE_MAPPER),
+                                    rng_seed=aid + seed_offset)
+              for aid in (1, 2)}
+    merges, cur, events, kf_steps = [], [None], [], {1: [], 2: []}
+    publish = bus.publish
+
+    def publishing(sender, target, channel, msg):
+        events.append((cur[0], sender, channel))
+        return publish(sender, target, channel, msg)
+
+    bus.publish = publishing
+    jagent._dev_ready = lambda arr: True
+    for a in agents.values():
+        a.tracker._record_ready = lambda rec: True
+        a._gba_ready = lambda: True
+        receive_bows = a._receive_new_key_frame_bows
+
+        def bows_in(m, a=a, receive_bows=receive_bows):
+            n_log = len(a.log)
+            receive_bows(m)
+            found = [e[2] for e in a.log[n_log:] if e[0] == "merge_candidates"]
+            events.append((cur[0], a.agent_id, "bows in", len(a._own_kf_slots()), found))
+
+        a._receive_new_key_frame_bows = bows_in
+        do_merge = a._do_merge
+
+        def recording(peer_id, mB, metaB, S_ab, weld_kf, a=a, do_merge=do_merge):
+            sides = [(x.map, dict(x.tracker.kf_timestamps), SEGMENTS7[x.agent_id][0])
+                     for x in (a, agents[peer_id])]
+            merges.append({"agent": a.agent_id, "step": cur[0], "S_ab": np.asarray(S_ab).tolist(),
+                           "scale_gt": merge_scale_gt(sides, traj, jmetrics)})
+            return do_merge(peer_id, mB, metaB, S_ab, weld_kf)
+
+        a._do_merge = recording
+    Kj = jnp.asarray(K)
+    for step in range(N_STEPS7 + N_IDLE7):
+        cur[0] = step
+        if step == N_STEPS7:
+            for a in agents.values():
+                a.flush()
+        for aid, (lo, hi) in SEGMENTS7.items():
+            if step < N_STEPS7:
+                img = np.asarray(world.render(jnp.asarray(traj[lo + step]), Kj, h, w))
+                agents[aid].process_image(img, step * 0.1)
+                kf_steps[aid].append(agents[aid].tracker.n_kf_host)
+            else:
+                agents[aid].run_once(step * 0.1)
+    out = {"merges": merges, "events": events, "kf_steps": kf_steps}
+    for aid, a in agents.items():
+        n = int(a.map.n_kf)
+        valid = np.asarray(a.map.kf_valid)[:n]
+        out[str(aid)] = {
+            "merged": bool(a.peers[3 - aid].successfully_merged),
+            "log_kinds": sorted({e[0] for e in a.log}), "log": [list(map(str, e)) for e in a.log],
+            "n_kf": n, "by_creator": {str(c): int((a.meta.kf_creator[:n][valid] == c).sum())
+                                      for c in (1, 2)},
+            "parent": a.frames.parent_frame, "invariants": bool(a.check_invariants())}
+    out["ate2"], out["ate2_n"] = agents_keyframe_ate(agents[2], traj, jmetrics)
+    out["bandwidth"] = bus.bandwidth_report()
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
     import jax
 
@@ -674,5 +841,8 @@ if __name__ == "__main__":
         _reference_slice3_main()
     elif "--slice6" in sys.argv:
         _reference_slice6_main()
+    elif "--slice7" in sys.argv:
+        offset = int(sys.argv[sys.argv.index("--seed-offset") + 1]) if "--seed-offset" in sys.argv else 0
+        _reference_slice7_main(offset)
     else:
         _reference_main()
