@@ -15,6 +15,10 @@ reads from either package's tracker. Place recognition crosses too: a
 `Vocabulary` as the dict of its numpy fields, a `BowDatabase` and a
 `Sim3Result` as dicts of numpy arrays, and a stored atlas map (`StoredMap`:
 map, meta, database, covisibility, keyframe timestamps) as a dict of those.
+The agents' batch axis (`parallel/multi_agent.py`) crosses the same way:
+a `MeshProtocolState` as a dict of numpy arrays, and MapStates or protocol
+states stacked on a leading agent axis (the reference's `stack_agents`)
+field by field with that axis, through the same functions.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .frontend.extractor import Frame, FrontendConfig
 from .io import config
 from .mapping.atlas import StoredMap
 from .mapping.map_state import MapMeta, MapState
+from .parallel.multi_agent import MeshProtocolState
 from .placerec.database import BowDatabase
 from .placerec.vocabulary import Vocabulary
 from .tracking.tracker import AutoState, TrackerConfig
@@ -48,6 +53,14 @@ def map_state_from_numpy(arrays: dict, device=None) -> MapState:
 
 def map_state_to_numpy(m: MapState) -> dict:
     return _to_numpy(m)
+
+
+def protocol_state_from_numpy(arrays: dict, device=None) -> MeshProtocolState:
+    return _to_tensors(MeshProtocolState, arrays, device)
+
+
+def protocol_state_to_numpy(st: MeshProtocolState) -> dict:
+    return _to_numpy(st)
 
 
 def frame_from_numpy(arrays: dict, device=None) -> Frame:

@@ -44,14 +44,17 @@
 // 32-byte coalesced store of the warp.
 //
 // C interface (ctypes): returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a level count outside [1, 16].
+// cudaErrorInvalidValue for a level count outside [1, 64].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxLevels = 16;
+// 64 levels hold 8 frames of 8 levels: `extract_batch` describes every
+// agent's frame in one launch. The table travels by value (about 1.8 KB at
+// 64 levels, under the 4 KB kernel-parameter limit).
+constexpr int kMaxLevels = 64;
 constexpr int kHalf = 15;                    // orientation patch radius
 constexpr int kPatch = 2 * kHalf + 1;        // 31
 constexpr int kBits = 256;                   // descriptor bits = threads of the twin's order

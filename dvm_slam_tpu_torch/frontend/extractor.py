@@ -104,10 +104,9 @@ def _slot_consts(budgets, scales, device):
     return lvl.to(device), scale.to(device)
 
 
-def extract(img, config: FrontendConfig):
-    """Grayscale [H,W] (0..255, any dtype) -> Frame with keypoints in RAW
-    px; `make_frame` undistorts them. FAST and the blur run per level, then
-    one K1 call describes the whole frame."""
+def _detect(img, config: FrontendConfig):
+    """Pyramid, then FAST and the blur per level: (raws, blurs, xy [F,2] in
+    level px, score [F], valid [F]), each level contiguous for K1."""
     img = img.to(torch.float32)
     levels = pyramid.build_pyramid(img, config.n_levels, config.scale_factor)
     raws, blurs, xys, scores, valids = [], [], [], [], []
@@ -118,12 +117,39 @@ def extract(img, config: FrontendConfig):
         xys.append(xy)
         scores.append(score)
         valids.append(valid)
-    xy_lv = torch.cat(xys)
-    ang, desc = _orient_and_describe(raws, blurs, xy_lv, config.level_offsets, config.use_kernel)
-    lvl, scale = _slot_consts(config.level_budgets, config.scales, img.device)
+    return raws, blurs, torch.cat(xys), torch.cat(scores), torch.cat(valids)
+
+
+def _frame(xy_lv, score, valid, ang, desc, config: FrontendConfig):
+    lvl, scale = _slot_consts(config.level_budgets, config.scales, xy_lv.device)
     xy = xy_lv * scale  # level px -> level-0 px, the f32 product `xy * s` of each level
-    return Frame(xy=xy, xy_raw=xy, level=lvl.clone(), angle=ang, response=torch.cat(scores),
-                 desc=desc, valid=torch.cat(valids))
+    return Frame(xy=xy, xy_raw=xy, level=lvl.clone(), angle=ang, response=score, desc=desc,
+                 valid=valid)
+
+
+def extract(img, config: FrontendConfig):
+    """Grayscale [H,W] (0..255, any dtype) -> Frame with keypoints in RAW
+    px; `make_frame` undistorts them. FAST and the blur run per level, then
+    one K1 call describes the whole frame."""
+    raws, blurs, xy_lv, score, valid = _detect(img, config)
+    ang, desc = _orient_and_describe(raws, blurs, xy_lv, config.level_offsets, config.use_kernel)
+    return _frame(xy_lv, score, valid, ang, desc, config)
+
+
+def extract_batch(imgs, config: FrontendConfig):
+    """A frames [A,H,W] -> A Frames equal to A `extract` calls, bit for bit.
+    Each frame's pyramid, FAST and blur run in turn; then ONE K1 call
+    describes every frame's levels (A x n_levels entries of the level table,
+    at most `orb_kernel.MAX_LEVELS`), and its rows are split back per frame."""
+    dets = [_detect(img, config) for img in imgs]
+    F = config.capacity
+    offsets = [0] + [a * F + o for a in range(len(dets)) for o in config.level_offsets[1:]]
+    raws = [r for d in dets for r in d[0]]
+    blurs = [b for d in dets for b in d[1]]
+    ang, desc = _orient_and_describe(raws, blurs, torch.cat([d[2] for d in dets]), offsets,
+                                     config.use_kernel)
+    return [_frame(xy_lv, score, valid, ang[a * F:(a + 1) * F], desc[a * F:(a + 1) * F], config)
+            for a, (_, _, xy_lv, score, valid) in enumerate(dets)]
 
 
 def _undistort_frame(f: Frame, K, dist):

@@ -22,6 +22,10 @@ never waits for the host.
 The bf16 adjoint of the reference is TPU-only; the port holds BA to the
 f32 CPU reference.
 
+`bundle_adjust_batched` is `bundle_adjust` for B windows at once (the
+reference's `jax.vmap` of `local_ba`): every LM decision per window, one K3
+and one K2 call per LM step for all of them.
+
 `bundle_adjust_pcg` keeps both of the reference's Schur strategies with the
 port's own rule: the dense coupling [L,P,6,3] (one `index_put_` per LM step,
 every Schur product a matmul, the reduced system solved by block-Jacobi
@@ -289,6 +293,205 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
     inliers = obs_valid & (chi2 <= CHI2_MONO) & (z > 0)
     total = torch.sum(torch.where(inliers, chi2, 0.0))
     return best_poses, best_points.T, total, inliers
+
+
+def _block_jacobi_pcg_batched(Sm, Minv_d, r0, iters: int):
+    """`_block_jacobi_pcg` for B systems at once: Sm [B,6L,6L], Minv_d
+    [B,L,6,6], r0 [B,6L]; each system's step sizes are its own."""
+    B, L = Minv_d.shape[:2]
+
+    def precond(r):
+        return (Minv_d @ r.reshape(B, L, 6, 1)).reshape(B, -1)
+
+    x = torch.zeros_like(r0)
+    r = r0
+    z = precond(r0)
+    p = z
+    rz = torch.sum(r0 * z, dim=1)
+    for _ in range(iters):
+        Ap = (Sm @ p[..., None])[..., 0]
+        alpha = rz / torch.clamp(torch.sum(p * Ap, dim=1), min=1e-30)
+        x = x + alpha[:, None] * p
+        r = r - alpha[:, None] * Ap
+        z = precond(r)
+        rzn = torch.sum(r * z, dim=1)
+        beta = rzn / torch.clamp(rz, min=1e-30)
+        p = z + beta[:, None] * p
+        rz = rzn
+    return x
+
+
+def bundle_adjust_batched(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
+                          iters: int = 10, damping: float = 1e-4, stage2_iters: int = 5,
+                          schur_iters: int = 32, use_kernel=None):
+    """B windowed BAs in one solve: `bundle_adjust` with a leading batch
+    axis on every argument (kf_pose [B,L,7], kf_fixed [B,L], kf_xy
+    [B,L,F,2], kf_sigma2 [B,L,F], obs_pt [B,L,F] into the window's own
+    pts [B,P,3], pt_opt [B,P]; K [4] shared or [B,4]). Damping, the cost
+    test, the stage boundary and the accept/reject are per window, so each
+    window's result is what `bundle_adjust` alone gives it (to f32
+    rounding: the batched products and the solve may round differently).
+    Each LM step makes ONE K3 call and ONE K2 call for all B windows
+    (`scatter.onehot_gather_batched`, `onehot_adjoint_batched`). Returns
+    (kf_pose' [B,L,7], pts' [B,P,3], total_chi2 [B], inlier_mask [B,L,F])."""
+    B, L, F = obs_pt.shape
+    P = pts.shape[1]
+    dtype = pts.dtype
+    dev = pts.device
+    K = K.expand(B, 4) if K.dim() == 1 else K
+    fx, fy, cx, cy = (K[:, i, None, None] for i in range(4))        # [B,1,1]
+
+    info = 1.0 / torch.clamp(kf_sigma2, min=1e-12)
+    obs_valid = obs_pt >= 0
+    pidx = torch.clamp(obs_pt, min=0).to(torch.int64)
+    free_cam = (~kf_fixed).to(dtype)                                 # [B,L]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    pidx_adj = torch.where(obs_valid, obs_pt, -1).to(torch.int32).contiguous()
+    popt_obs = (torch.gather(pt_opt, 1, pidx.reshape(B, L * F)).reshape(B, L, F)
+                & obs_valid).to(dtype)                               # [B,L,F]
+    ru_obs = kf_xy[..., 0]
+    rv_obs = kf_xy[..., 1]
+
+    def diag_blocks(S):
+        """The [B,6,6,L] view of S's diagonal 6x6 blocks, S [B,L,6,L,6]."""
+        return torch.diagonal(S, dim1=1, dim2=3)
+
+    def compute_system(poses, points_pl):
+        """Residuals + Jacobian planes, all [., B, L, F]. points_pl: [B,3,P]."""
+        Xo = scatter.onehot_gather_batched(points_pl.contiguous(), pidx_adj,
+                                           use_kernel)               # [B,L,3,F]
+        R = lie.quat_to_matrix(lie.se3_q(poses))                     # [B,L,3,3]
+        t = lie.se3_t(poses)
+
+        def rot_row(i):
+            return (R[..., i, 0, None] * Xo[:, :, 0] + R[..., i, 1, None] * Xo[:, :, 1]
+                    + R[..., i, 2, None] * Xo[:, :, 2] + t[..., i, None])
+
+        x, y, z = rot_row(0), rot_row(1), rot_row(2)                 # [B,L,F]
+        zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+        inv_z = 1.0 / zs
+        ru = ru_obs - (fx * x * inv_z + cx)
+        rv = rv_obs - (fy * y * inv_z + cy)
+
+        a00 = fx * inv_z
+        a02 = -fx * x * inv_z * inv_z
+        a11 = fy * inv_z
+        a12 = -fy * y * inv_z * inv_z
+        zero = torch.zeros_like(x)
+        Ju = torch.stack([-a00, zero, -a02, -a02 * y, -a00 * z + a02 * x, a00 * y])
+        Jv = torch.stack([zero, -a11, -a12, a11 * z - a12 * y, a12 * x, -a11 * x])
+
+        R0 = R[..., 0, :].permute(2, 0, 1)                           # [3,B,L]
+        R1 = R[..., 1, :].permute(2, 0, 1)
+        R2 = R[..., 2, :].permute(2, 0, 1)
+        Pu = -(R0[..., None] * a00[None] + R2[..., None] * a02[None])  # [3,B,L,F]
+        Pv = -(R1[..., None] * a11[None] + R2[..., None] * a12[None])
+
+        chi2 = (ru * ru + rv * rv) * info
+        rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        w_base = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * (z > 0)
+        return ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base
+
+    def robust_cost(chi2, active):
+        rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        rho = torch.where(rn <= HUBER_DELTA, chi2,
+                          2.0 * HUBER_DELTA * rn - HUBER_DELTA * HUBER_DELTA)
+        return torch.sum(rho * active, dim=(1, 2))                   # [B]
+
+    poses, points_pl = kf_pose, pts.transpose(1, 2)
+    active = obs_valid.to(dtype)
+    best_poses, best_points = kf_pose, points_pl
+    best_cost = torch.full((B,), math.inf, dtype=dtype, device=dev)
+    lam = torch.full((B,), damping, dtype=dtype, device=dev)
+    stage_done = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    for k in range(iters + stage2_iters + 1):
+        ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base = compute_system(poses, points_pl)
+        # the deferred LM acceptance and stage boundary of `bundle_adjust`,
+        # each decision per window
+        cost_cur = robust_cost(chi2, active)
+        reject = ~(cost_cur <= best_cost)                            # [B]
+        stage2_mask = (obs_valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dtype)
+        do_stage = ~reject & (k >= iters) & ~stage_done
+        active = torch.where(do_stage[:, None, None], stage2_mask, active)
+        stage_done = stage_done | do_stage
+        cost_eff = torch.where(do_stage, robust_cost(chi2, active), cost_cur)
+        best_cost = torch.where(reject, best_cost, cost_eff)
+        best_poses = torch.where(reject[:, None, None], best_poses, poses)
+        best_points = torch.where(reject[:, None, None], best_points, points_pl)
+        lam = torch.clamp(torch.where(reject, lam * 4.0, lam * 0.5), 1e-7, 1e3)
+        w = w_base * active
+
+        Juc = Ju * free_cam[None, :, :, None]
+        Jvc = Jv * free_cam[None, :, :, None]
+        Puc = Pu * popt_obs[None]
+        Pvc = Pv * popt_obs[None]
+
+        Hcc = (torch.einsum("iblf,blf,jblf->blij", Juc, w, Juc)
+               + torch.einsum("iblf,blf,jblf->blij", Jvc, w, Jvc))  # [B,L,6,6]
+        bc = (torch.einsum("iblf,blf->bli", Juc, w * ru)
+              + torch.einsum("iblf,blf->bli", Jvc, w * rv))         # [B,L,6]
+
+        HppV = (Puc[:, None] * Puc[None, :] + Pvc[:, None] * Pvc[None, :]) * w[None, None]
+        bpV = Puc * (w * ru)[None] + Pvc * (w * rv)[None]            # [3,B,L,F]
+        WV = (Juc[:, None] * Puc[None, :] + Jvc[:, None] * Pvc[None, :]) * w[None, None]
+
+        # one adjoint scatter per step for all B windows, feature-major
+        # storage [B,L,F,30] handed over as a [B,L,30,F] view
+        vals = torch.cat([HppV.reshape(9, B, L, F).permute(1, 2, 3, 0),
+                          bpV.permute(1, 2, 3, 0),
+                          WV.reshape(18, B, L, F).permute(1, 2, 3, 0)], -1)
+        fused = scatter.onehot_adjoint_batched(vals.permute(0, 1, 3, 2), pidx_adj, P,
+                                               use_kernel)            # [B,L,30,P]
+        HppP = torch.sum(fused[:, :, :9], dim=1).reshape(B, 3, 3, P)
+        bpP = torch.sum(fused[:, :, 9:12], dim=1)                    # [B,3,P]
+        W = fused[:, :, 12:].reshape(B, L, 6, 3, P)
+
+        trp = HppP[:, 0, 0] + HppP[:, 1, 1] + HppP[:, 2, 2]          # [B,P]
+        lam_p = lam[:, None] * (1.0 + trp / 3.0)
+        eyeP = eye3[None, :, :, None]
+        Hpp_d = HppP + lam_p[:, None, None] * eyeP
+        empty = (trp < 1e-12)[:, None, None]
+        Hpp_d = torch.where(empty, eyeP, Hpp_d)
+        Hpi = torch.where(empty, 0.0, inv3x3_planes(Hpp_d.movedim(0, 2)).movedim(2, 0))
+
+        # WHi[b,l,i,k,p] = sum_j W[b,l,i,j,p] Hpi[b,j,k,p]
+        WHi = torch.stack(
+            [W[:, :, :, 0] * Hpi[:, None, None, 0, kk] + W[:, :, :, 1] * Hpi[:, None, None, 1, kk]
+             + W[:, :, :, 2] * Hpi[:, None, None, 2, kk] for kk in range(3)], dim=3)
+        WHi2 = WHi.reshape(B, L * 6, 3 * P)
+        W2 = W.reshape(B, L * 6, 3 * P)
+        S = -(WHi2 @ W2.transpose(1, 2)).reshape(B, L, 6, L, 6)
+
+        lam_c = lam[:, None] * (1.0 + torch.einsum("blii->bl", Hcc) / 6.0)
+        diag_blocks(S).add_(Hcc.permute(0, 2, 3, 1))
+        diag_blocks(S).add_((lam_c[..., None, None] * eye6).permute(0, 2, 3, 1))
+        fix2 = kf_fixed[:, :, None] | kf_fixed[:, None, :]
+        S = torch.where(fix2[:, :, None, :, None], 0.0, S)
+        diag_blocks(S).add_((kf_fixed.to(dtype)[..., None, None] * eye6).permute(0, 2, 3, 1))
+
+        rhs = -(bc - (WHi2 @ bpP.reshape(B, 3 * P, 1)).reshape(B, L, 6))
+        rhs = (rhs * free_cam[..., None]).reshape(B, -1)
+
+        Minv_d = _inv6x6_block(diag_blocks(S).permute(0, 3, 1, 2))
+        dc = _block_jacobi_pcg_batched(S.reshape(B, L * 6, L * 6), Minv_d, rhs,
+                                       schur_iters).reshape(B, L, 6)
+        dc = torch.where(torch.isfinite(dc), dc, 0.0) * free_cam[..., None]
+
+        Wt_dc = (dc.reshape(B, 1, L * 6) @ W2).reshape(B, 3, P)
+        rhs_p = -(bpP + Wt_dc)
+        dpP = torch.sum(Hpi * rhs_p[:, None], dim=2)
+        dpP = torch.where(torch.isfinite(dpP), dpP, 0.0) * pt_opt[:, None, :]
+
+        poses = torch.where(reject[:, None, None], best_poses, lie.se3_retract(poses, dc))
+        points_pl = torch.where(reject[:, None, None], best_points, points_pl + dpP)
+
+    sys_fin = compute_system(best_poses, best_points)
+    z, chi2 = sys_fin[2], sys_fin[7]
+    inliers = obs_valid & (chi2 <= CHI2_MONO) & (z > 0)
+    total = torch.sum(torch.where(inliers, chi2, 0.0), dim=(1, 2))
+    return best_poses, best_points.transpose(1, 2), total, inliers
 
 
 def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,

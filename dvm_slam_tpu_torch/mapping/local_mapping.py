@@ -5,9 +5,10 @@ Port of the per-keyframe chain of `dvm_slam_tpu/mapping/local_mapping.py`
 (`LocalMapping.cc` semantics): `cull_points`, `create_new_points`,
 `fuse_duplicates`, `_compact_obs`, `local_ba` (monocular, with the
 two-camera gauge pin), `_mapper_step` / `_mapper_chain`, the visual part
-of the host `LocalMapper`, and the post-merge `global_ba` with
-`apply_gba_correction`. `local_ba_batched` and the inertial stages wait for
-later slices.
+of the host `LocalMapper`, the post-merge `global_ba` with
+`apply_gba_correction`, and `local_ba_batched` (B maps' windows in one
+solve, the agents' batch axis of `parallel/multi_agent.py`). The inertial
+stages wait for the sensor-mode slice (ROADMAP item 13).
 
 Three rules keep the outputs equal to the reference's:
 
@@ -285,17 +286,11 @@ def _compact_obs(kf_xy, kf_sig, obs_pt, n_obs: int):
             torch.take_along_dim(obs_pt, sel, dim=1))
 
 
-def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int = 16,
-             n_pts: int = 4096, iters: int = 6, n_levels: int = 8,
-             scale_factor: float = 1.2, n_obs: int = 512, bf=None, use_kernel=None):
-    """Covisibility-window BA around `center` (`Optimizer::
-    LocalBundleAdjustment` window): local = center + covisible keyframes;
-    points = those observed by local keyframes (the best `n_pts` by
-    `pt_found`); fixed = other observers of those points + keyframe 0, and
-    at least two pinned cameras for a monocular window (the Sim(3) gauge).
-    Returns (map, chi2)."""
-    if bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
+def _ba_window(m: map_state.MapState, center, n_local: int, n_fixed: int, n_pts: int,
+               n_levels: int, scale_factor: float, n_obs: int):
+    """`local_ba`'s window around `center` at fixed shapes: the BA's inputs
+    (poses, fixed, compacted observations, points, pt_opt) and what the
+    writeback needs."""
     dev = m.pt_pos.device
     i32 = torch.int32
     scales = _level_scales(n_levels, scale_factor, dev)
@@ -360,10 +355,18 @@ def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int =
     no = min(n_obs, F)
     kf_xy_c, kf_sig_c, obs_pt_c = _compact_obs(
         m.kf_xy[rowc], sigma2_lv[m.kf_level[rowc].to(torch.int64)], obs_pt, no)
-    new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust(
-        m.kf_pose[rowc], fixed, kf_xy_c, kf_sig_c, obs_pt_c, m.pt_pos[sel], sel_ok, K,
-        iters=iters, use_kernel=use_kernel)
+    ba_in = (m.kf_pose[rowc], fixed, kf_xy_c, kf_sig_c, obs_pt_c, m.pt_pos[sel], sel_ok)
+    return ba_in, (rows, rmask, fixed, inv, sel_flag, obs_pt, obs_pt_g, no)
 
+
+def _ba_writeback(m: map_state.MapState, ctx, new_poses, new_pts, inliers_c):
+    """Fold a window's BA result back into the map: the non-fixed poses, the
+    window's points, and the observations that ended as outliers erased."""
+    rows, rmask, fixed, inv, sel_flag, obs_pt, obs_pt_g, no = ctx
+    dev = m.pt_pos.device
+    i32 = torch.int32
+    P = m.pt_capacity
+    Kcap = m.kf_capacity
     # expand the compacted inlier mask onto the full feature table: compacted
     # slot i of row l is the i-th valid observation, so a rank gather undoes it
     LX = obs_pt.shape[0]
@@ -393,7 +396,48 @@ def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int =
     new_rows = torch.where(valid_o & ~inliers, -1, obs_pt_g)
     kf_obs = torch.where((wpos_all >= 0)[:, None],
                          new_rows[torch.clamp(wpos_all, min=0).to(torch.int64)], m.kf_obs)
-    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, kf_obs=kf_obs), chi2
+    return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, kf_obs=kf_obs)
+
+
+def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int = 16,
+             n_pts: int = 4096, iters: int = 6, n_levels: int = 8,
+             scale_factor: float = 1.2, n_obs: int = 512, bf=None, use_kernel=None):
+    """Covisibility-window BA around `center` (`Optimizer::
+    LocalBundleAdjustment` window): local = center + covisible keyframes;
+    points = those observed by local keyframes (the best `n_pts` by
+    `pt_found`); fixed = other observers of those points + keyframe 0, and
+    at least two pinned cameras for a monocular window (the Sim(3) gauge).
+    Returns (map, chi2)."""
+    if bf is not None:
+        raise NotImplementedError("stereo BA rows are not ported")
+    ba_in, ctx = _ba_window(m, center, n_local, n_fixed, n_pts, n_levels, scale_factor, n_obs)
+    new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust(*ba_in, K, iters=iters,
+                                                           use_kernel=use_kernel)
+    return _ba_writeback(m, ctx, new_poses, new_pts, inliers_c), chi2
+
+
+def local_ba_batched(ms: map_state.MapState, centers, K, n_local: int = 16, n_fixed: int = 16,
+                     n_pts: int = 4096, iters: int = 6, n_levels: int = 8,
+                     scale_factor: float = 1.2, n_obs: int = 512, bf=None, use_kernel=None):
+    """B covisibility-window BAs in one solve (the reference's `jax.vmap` of
+    `local_ba`; one window per agent's map). `ms` is a MapState stacked on a
+    leading batch axis (`map_state.stack_maps`), `centers` [B] the window
+    centers, K [4] shared or [B,4]. Each map's window is selected at
+    `local_ba`'s fixed shapes, then ONE `ba.bundle_adjust_batched` solves
+    all B windows, with one K3 and one K2 launch per LM step, LM damping
+    and acceptance per map. Returns (ms', chi2 [B]), every map updated as
+    `local_ba` alone would update it."""
+    if bf is not None:
+        raise NotImplementedError("stereo BA rows are not ported")
+    maps = map_state.unstack_maps(ms, ms.kf_pose.shape[0])
+    wins = [_ba_window(m, c, n_local, n_fixed, n_pts, n_levels, scale_factor, n_obs)
+            for m, c in zip(maps, centers)]
+    ba_in = [torch.stack(xs) for xs in zip(*(w[0] for w in wins))]
+    new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust_batched(*ba_in, K, iters=iters,
+                                                                   use_kernel=use_kernel)
+    out = [_ba_writeback(m, w[1], new_poses[b], new_pts[b], inliers_c[b])
+           for b, (m, w) in enumerate(zip(maps, wins))]
+    return map_state.stack_maps(out), chi2
 
 
 def global_ba(m: map_state.MapState, K, n_kf_max: int | None = None, n_pts: int | None = None,

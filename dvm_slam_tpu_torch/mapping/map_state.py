@@ -1,8 +1,7 @@
 """MapState: the struct-of-arrays SLAM map.
 
-Port of `dvm_slam_tpu/mapping/map_state.py` (`stack_maps` and the scatter
-variant of `point_observers` wait for the multi-agent slices):
-same fields, dtypes and shapes, so maps cross between the packages field by
+Port of `dvm_slam_tpu/mapping/map_state.py` (the scatter variant of
+`point_observers` has no caller and is not ported): same fields, dtypes and shapes, so maps cross between the packages field by
 field (`convert.py`). Like the reference, every op returns a new
 `MapState`; a field it writes is cloned first, the others are shared.
 
@@ -128,6 +127,22 @@ def create(kf_cap: int, pt_cap: int, feat_cap: int, device=None,
         n_kf=z((), i32),
         n_pt=z((), i32),
     )
+
+
+def stack_maps(maps) -> MapState:
+    """Stack N maps of one capacity on a leading batch axis (one per agent)
+    for batched device work (`local_ba_batched`, the multi-agent step).
+    Raises where the maps' capacities differ."""
+    caps = {(m.kf_capacity, m.pt_capacity, m.feat_capacity) for m in maps}
+    if len(caps) != 1:
+        raise ValueError(f"stack_maps takes maps of one capacity (kf, pt, feat), got "
+                         f"{sorted(caps)}")
+    return MapState(*(torch.stack(xs) for xs in zip(*maps)))
+
+
+def unstack_maps(ms: MapState, n: int):
+    """Inverse of `stack_maps`: split the batch axis back into N maps."""
+    return [MapState(*(x[i] for x in ms)) for i in range(n)]
 
 
 # --------------------------------------------------------------------------

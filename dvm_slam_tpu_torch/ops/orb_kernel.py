@@ -32,7 +32,7 @@ from . import orb_descriptor
 
 launches = 0
 
-MAX_LEVELS = 16  # the kernel's level table holds this many levels
+MAX_LEVELS = 64  # the kernel's level table holds this many levels (8 frames of 8)
 
 _FLAGS = ("--fmad=false",)  # keep every multiply and add separately rounded
 

@@ -19,6 +19,13 @@ masked row gather. The hand-written Hopper kernels K2 and K3 are in
 Dispatch (`use_kernel`, as `FrontendConfig.use_kernel`): None takes the
 kernel for CUDA tensors and the plain version for CPU tensors; False always
 the plain version; True always the kernel, and raises for CPU tensors.
+
+`onehot_adjoint_batched` and `onehot_gather_batched` serve B windows (one
+per map, `ba.bundle_adjust_batched`) with ONE call each, the kernels' bodies
+unchanged: K2's rows are independent, so B windows of L rows fold into
+B*L rows; K3's table is shared by all rows, so the B maps' point tables
+sit side by side in one [G, B*P] table and map b's indices are offset by
+b*P, after an index outside map b's [0, P) has become -1.
 """
 
 from __future__ import annotations
@@ -83,3 +90,34 @@ def onehot_gather(pts_pl, pidx, use_kernel=None):
     if _use_kernel(pts_pl, use_kernel):
         return scatter_kernel.onehot_gather(pts_pl, pidx)
     return onehot_gather_plain(pts_pl, pidx)
+
+
+def fold_rows(pidx, n_cols: int):
+    """[B,L,F] indices into B tables of n_cols each -> [B*L,F] int32 indices
+    into their side-by-side table: map b's index p in [0, n_cols) becomes
+    b*n_cols + p, any other becomes -1 (before the offset, so that map b
+    never reads map b+1's point)."""
+    B = pidx.shape[0]
+    if B * n_cols >= 2 ** 31:
+        raise ValueError(f"{B} tables of {n_cols} columns overflow int32 indices")
+    off = (torch.arange(B, dtype=torch.int32, device=pidx.device) * n_cols)[:, None, None]
+    ok = (pidx >= 0) & (pidx < n_cols)
+    return torch.where(ok, pidx.to(torch.int32) + off, -1).reshape(-1, pidx.shape[-1])
+
+
+def onehot_adjoint_batched(vals, pidx, n_cols: int, use_kernel=None):
+    """B windows in one K2 call: vals [B,L,G,F] (any strides that let B and
+    L merge, as `bundle_adjust_batched`'s view does), pidx [B,L,F] int32 ->
+    [B,L,G,n_cols], each window's rows those of its own call."""
+    B, L, G, F = vals.shape
+    out = onehot_adjoint(vals.reshape(B * L, G, F), pidx.reshape(B * L, F), n_cols, use_kernel)
+    return out.reshape(B, L, G, n_cols)
+
+
+def onehot_gather_batched(pts_pl, pidx, use_kernel=None):
+    """B maps in one K3 call: pts_pl [B,G,P], pidx [B,L,F] -> [B,L,G,F],
+    `out[b,l,g,f] = pts_pl[b, g, pidx[b,l,f]]`, 0 outside [0, P)."""
+    B, G, P = pts_pl.shape
+    L, F = pidx.shape[1:]
+    table = pts_pl.permute(1, 0, 2).reshape(G, B * P)
+    return onehot_gather(table, fold_rows(pidx, P).contiguous(), use_kernel).reshape(B, L, G, F)

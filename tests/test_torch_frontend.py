@@ -288,9 +288,16 @@ class TestOrbLevels:
         table = orb_kernel.level_table([im] * 16, [im] * 16, xy, tuple(range(17)))
         assert len(table) == 5 * 16 + 1
 
+    def test_level_table_takes_sixty_four_levels(self):
+        """Eight frames of eight levels, `extract_batch`'s table."""
+        im = torch.zeros((31, 33))
+        xy = torch.zeros((64, 2))
+        table = orb_kernel.level_table([im] * 64, [im] * 64, xy, tuple(range(65)))
+        assert len(table) == 5 * 64 + 1
+
     @pytest.mark.parametrize("bad, error, match", [
-        ("17 levels", ValueError, "1 to 16 levels"),
-        ("no level", ValueError, "1 to 16 levels"),
+        ("65 levels", ValueError, "1 to 64 levels"),
+        ("no level", ValueError, "1 to 64 levels"),
         ("fewer blurs", ValueError, "blurred levels"),
         ("offsets too short", ValueError, "offsets"),
         ("offsets from 1", ValueError, "rise from 0"),
@@ -310,8 +317,8 @@ class TestOrbLevels:
         anything runs."""
         raws, blurs, xy, offs = _levels_to(*_frame_levels(images["random"]))
         offs = list(offs)
-        if bad == "17 levels":
-            raws, blurs, offs = (raws * 5)[:17], (blurs * 5)[:17], [0] * 17 + [xy.shape[0]]
+        if bad == "65 levels":
+            raws, blurs, offs = (raws * 17)[:65], (blurs * 17)[:65], [0] * 65 + [xy.shape[0]]
         elif bad == "no level":
             raws, blurs, offs = [], [], [xy.shape[0]]
         elif bad == "fewer blurs":

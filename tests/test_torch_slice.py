@@ -17,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -307,7 +308,8 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.multiagent.socket_transport, "
                 "dvm_slam_tpu_torch.multiagent.peer, dvm_slam_tpu_torch.multiagent.codec, "
                 "dvm_slam_tpu_torch.multiagent.reference_frames, "
-                "dvm_slam_tpu_torch.multiagent.agent; "
+                "dvm_slam_tpu_torch.multiagent.agent, dvm_slam_tpu_torch.parallel.multi_agent, "
+                "dvm_slam_tpu_torch.multiagent.native_codec; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
                 "or m == 'yaml' or m.startswith('yaml.')]; "
@@ -831,7 +833,155 @@ def _reference_slice7_main(seed_offset: int = 0):
     print(json.dumps(out))
 
 
+def _reference_slice8_protocol_main(perturb: float = 0.0):
+    """The JAX package's CPU reference of phase 22: `build_protocol_step` on
+    a 4-device CPU mesh, on `chip_smoke.protocol_maps` (four agents at
+    EuRoC capacity), PROTO_ROUNDS rounds with window 4, refresh_every 2,
+    fusion, the welding BA, the essential graph and the global BA on. The
+    RANSAC draws are the port's (`multi_agent.protocol_noise` from a CPU
+    generator seeded `multi_agent.SEED`, one [A,A,200,F] block a round):
+    the block goes in as the step's `keys` and `jax.random`'s key functions
+    pass it through while the step runs, so `ransac_umeyama` reads receiver
+    me's row for peer a where it would draw. Prints one JSON line per
+    round (`chip_smoke.py`'s JAX_REF8["rounds"]). With `--perturb X` every
+    map point moves by X times a standard normal draw first: the rounds'
+    own sensitivity to f32 rounding (the global BA on a merged map is
+    chaotic, fault t), which bounds S_peer after a refresh."""
+    import jax
+    import chip_smoke as cs
+    from dvm_slam_tpu.parallel import multi_agent as jma
+    from dvm_slam_tpu.placerec import vocabulary as jvoc
+    from dvm_slam_tpu_torch.parallel import multi_agent as tma
+
+    settings = jax_settings(euroc_settings_dict())
+    cfg = settings.tracker_config()
+    voc = jvoc.load(os.path.join(REPO, "data", "voc_default.npz"))
+    maps_np, K = cs.protocol_maps()
+    A = cs.PROTO_AGENTS
+    rng = np.random.RandomState(1)
+    for m in maps_np:
+        m["pt_pos"] = (m["pt_pos"] + perturb * rng.randn(*m["pt_pos"].shape)).astype(np.float32)
+    maps = jma.stack_agents([jms.MapState(**{k: jnp.asarray(v) for k, v in m.items()})
+                             for m in maps_np])
+    states = jma.stack_agents([jma.create_protocol_state(
+        cs.PROTO_CAPS[0], voc.n_words, A, refresh_base=cs.PROTO_REFRESH) for _ in range(A)])
+    step = jma.build_protocol_step(jma.make_mesh(A, jax.devices()[:A]), cfg, voc,
+                                   window=cs.PROTO_WINDOW, refresh_every=cs.PROTO_REFRESH)
+    gen = torch.Generator()
+    gen.manual_seed(tma.SEED)
+    Kb = jnp.asarray(np.tile(K, (A, 1)))
+    rnd = jax.random
+    saved = {n: getattr(rnd, n) for n in ("wrap_key_data", "fold_in", "split", "gumbel")}
+    rnd.wrap_key_data = lambda k: k
+    rnd.fold_in = lambda k, a: k[a]
+    rnd.split = lambda k, n=2: k
+    rnd.gumbel = lambda k, shape=(), *args, **kw: k
+    try:
+        for r in range(cs.PROTO_ROUNDS):
+            noise = tma.protocol_noise(gen, A, 200, cs.PROTO_CAPS[2], "cpu").numpy()
+            win = jnp.asarray(cs.protocol_windows(r))
+            t0 = time.perf_counter()
+            maps, states, M = step(maps, states, Kb, win, win, jnp.asarray(noise))
+            jax.block_until_ready(maps)
+            print(json.dumps({
+                "round": r, "seconds": time.perf_counter() - t0,
+                "noise_sum": float(noise.astype(np.float64).sum()),
+                "M": np.asarray(M).astype(int).tolist(),
+                "S_ok": np.asarray(states.S_ok).astype(int).tolist(),
+                "merged": np.asarray(states.merged).astype(int).tolist(),
+                "last_seen": np.asarray(states.last_seen).tolist(),
+                "dropped": np.asarray(states.dropped).tolist(),
+                "refresh_interval": np.asarray(states.refresh_interval).tolist(),
+                "next_refresh": np.asarray(states.next_refresh).tolist(),
+                "n_kf": np.asarray(maps.n_kf).tolist(), "n_pt": np.asarray(maps.n_pt).tolist(),
+                "S_peer": np.asarray(states.S_peer).tolist()}), flush=True)
+    finally:
+        for n, f in saved.items():
+            setattr(rnd, n, f)
+
+
+SEGMENTS8 = {1: (0, 46), 2: (28, 78), 3: (62, 110)}   # tests/test_three_agents.py
+N_IDLE8 = 8
+TRAJ8 = dict(lateral=2.6, forward=0.7, yaw=0.08)
+
+
+def _reference_slice8_agents_main(seed_offset: int = 0):
+    """The JAX package's CPU reference of phase 23: `tests/test_three_agents.py`'s
+    layout (chained overlaps, agents 1-3 on SEGMENTS8 of
+    `smooth_trajectory(110, **TRAJ8)`, interleaved per step, then flush()
+    and N_IDLE8 protocol rounds) at `configs/euroc.yaml`'s tracker settings
+    with camera.fps FPS7, the console's mapper and the shipped vocabulary,
+    on the smoke's dense world (fault o). Asynchronous results land on the
+    next call, as in `--slice7`; the trackers draw from PRNGKey(agent id +
+    `seed_offset`). Prints one JSON line: per agent the merged peers, the
+    log kinds, the parent frame, the creators in its map and its ATE over
+    its tracked trajectory (`tests/test_three_agents.py:101-114`), and the
+    merge steps."""
+    from dvm_slam_tpu.eval import metrics as jmetrics
+    from dvm_slam_tpu.mapping import local_mapping as jlm
+    from dvm_slam_tpu.multiagent import agent as jagent
+    from dvm_slam_tpu.multiagent import transport as jtransport
+    from dvm_slam_tpu.placerec import vocabulary as jvoc
+
+    d = euroc_settings_dict()
+    d["camera"]["fps"] = FPS7
+    settings = jax_settings(d)
+    cfg, K = settings.tracker_config(), settings.camera.K()
+    h, w = cfg.frontend.height, cfg.frontend.width
+    world = jsyn.PlaneWorld(seed=7, tex_size=2048, plane_z=6.0, extent=36.0, **DENSE_WORLD)
+    traj = jsyn.smooth_trajectory(110, **TRAJ8)
+    voc = jvoc.load(os.path.join(REPO, "data", "voc_default.npz"))
+    bus = jtransport.LoopbackTransport()
+    agents = {aid: jagent.SlamAgent(aid, cfg, K, np.zeros(4, np.float32), voc, bus, [1, 2, 3],
+                                    mapper=jlm.LocalMapper(**CONSOLE_MAPPER),
+                                    rng_seed=aid + seed_offset)
+              for aid in (1, 2, 3)}
+    jagent._dev_ready = lambda arr: True
+    for a in agents.values():
+        a.tracker._record_ready = lambda rec: True
+        a._gba_ready = lambda: True
+    Kj = jnp.asarray(K)
+    steps = max(hi - lo for lo, hi in SEGMENTS8.values())
+    merge_steps = {}
+    for step in range(steps + N_IDLE8):
+        if step == steps:
+            for a in agents.values():
+                a.flush()
+        for aid, (lo, hi) in SEGMENTS8.items():
+            a = agents[aid]
+            n_log = len(a.log)
+            if step >= steps:
+                a.run_once(step * 0.1)
+            elif lo + step < hi:
+                img = np.asarray(world.render(jnp.asarray(traj[lo + step]), Kj, h, w))
+                a.process_image(img, step * 0.1)
+            for e in a.log[n_log:]:
+                if e[0] in ("merged", "implicit_merge"):
+                    merge_steps.setdefault(str(aid), []).append([e[0], int(e[1]), step])
+    out = {"offset": seed_offset, "merge_steps": merge_steps}
+    for aid, a in agents.items():
+        n = int(a.map.n_kf)
+        valid = np.asarray(a.map.kf_valid)[:n]
+        est, gt = [], []
+        for ts, T, _ in a.tracker.trajectory:
+            i = SEGMENTS8[aid][0] + int(round(ts / 0.1))
+            if i < len(traj):
+                est.append(np.asarray(T, np.float32))
+                gt.append(np.asarray(traj[i]))
+        out[str(aid)] = {
+            "merged": {str(p.agent_id): bool(p.successfully_merged) for p in a.peers},
+            "log_kinds": sorted({e[0] for e in a.log}), "parent": a.frames.parent_frame,
+            "creators": sorted({int(c) for c in a.meta.kf_creator[:n][valid]}),
+            "n_kf": n, "ate": float(jmetrics.ate_rmse(np.stack(est), np.stack(gt))[0]),
+            "n_poses": len(est), "invariants": bool(a.check_invariants())}
+    out["bandwidth"] = bus.bandwidth_report()
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
+    if "--slice8" in sys.argv:  # the protocol runs on a 4-device CPU mesh
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -841,6 +991,12 @@ if __name__ == "__main__":
         _reference_slice3_main()
     elif "--slice6" in sys.argv:
         _reference_slice6_main()
+    elif "--slice8" in sys.argv and "--protocol" in sys.argv:
+        _reference_slice8_protocol_main(
+            float(sys.argv[sys.argv.index("--perturb") + 1]) if "--perturb" in sys.argv else 0.0)
+    elif "--slice8" in sys.argv:
+        offset = int(sys.argv[sys.argv.index("--seed-offset") + 1]) if "--seed-offset" in sys.argv else 0
+        _reference_slice8_agents_main(offset)
     elif "--slice7" in sys.argv:
         offset = int(sys.argv[sys.argv.index("--seed-offset") + 1]) if "--seed-offset" in sys.argv else 0
         _reference_slice7_main(offset)
