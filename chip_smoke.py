@@ -17,7 +17,9 @@ stored one on a revisit), and slice 7, two decentralized `SlamAgent`s that
 merge their maps, and the `System` checkpoint, and slice 8, agents as a
 batch axis on the card (`parallel/multi_agent.py`: the batched BA, the
 per-frame agent step, the protocol round) and three agents merging through
-the native map codec.
+the native map codec, and slice 9, the other cameras through their `System`
+entry points: a stereo rig at KITTI width, an RGB-D camera at TUM width
+and a KB8 fisheye at TUM-VI width.
 Three hand-written kernels: K1 (fused ORB orientation + steered BRIEF,
 `csrc/orb_describe.cu`), K2 (BA adjoint scatter) and K3 (BA point gather,
 both `csrc/onehot_scatter.cu`). Phases, in order; any failure raises and the
@@ -81,7 +83,8 @@ run exits non-zero:
     call, buffered, dispatched with and without a keyframe), one pass with
     the kernels, then one plain (four until slice 6);
 15. the kernel table, at the System path's shapes (K1: one call for the 8
-    levels of a 600x350 frame; K2/K3: L = 32, and L = 8 and 20 beside it): the
+    levels of a 600x350 frame, and one for a KITTI stereo pair's 16 levels;
+    K2/K3: L = 32, and L = 8 and 20 beside it): the
     launches counted in phase 12, the wrapper-included µs (CUDA events
     around back-to-back calls: 200 for K1; for K2/K3 five rounds of 40, in
     turns with the library call, medians), the device-only µs (100 calls captured
@@ -187,12 +190,35 @@ run exits non-zero:
     under 3x the JAX CPU reference's spread over tracker draws and 0.25 m,
     every map packet's native bytes equal to `codec.pack_arrays`'s; pack and
     unpack ms of both codecs, `process_image` ms by kind, bytes per
-    channel.
+    channel;
+24. stereo: `System(sensor="stereo").track_stereo` on N_FRAMES9 rectified
+    pairs rendered at `configs/kitti.yaml`'s settings (1241x376, 2000
+    features, kf 1024, pt 32768) with ORB-SLAM3's KITTI Camera.bf, first
+    one K1 launch for frame 0's pair (both views' 16 levels) against its
+    twin as in phase 3; then through the kernels and the plain versions,
+    held to the JAX CPU reference (`JAX_REF9`): init on frame 0, a pose for
+    every frame, keyframes +-1, matches with depth per frame within
+    STEREO_RTOL, the metric (SE3-aligned) ATE under 3x the reference's, the
+    map inside the reference's capacities (`REF9_CAPS`), one K1 launch per
+    pair, K2/K3 once per LM step of every keyframe BA; the plain path with
+    the same keyframes, matches and rows, poses to 1e-3;
+25. RGB-D: `System(sensor="rgbd").track_rgbd` on N_FRAMES9 frames at
+    `configs/tum.yaml`'s settings (640x480, 1000 features) with TUM1's
+    Camera.bf and DepthMapFactor, the depth fed as uint16 sensor units, on
+    a world whose planes lie inside th_depth: held as phase 24, plus close
+    points created at keyframes after the first;
+26. KB8: `System.track_monocular` on N_FRAMES9 fisheye frames at
+    `configs/tum_vi.yaml`'s settings (512x512, KB8), warped from pinhole
+    renders of the dense world (`warp_to_fisheye`): two-view init within
+    the reference's spread over agents 0-5, good points within 5%, a pose
+    for every later frame, keyframes +-1, the ATE (Sim3) under 3x the
+    reference's, K1-K3 launches as in phase 12; the plain path as in phase
+    13.
 
 Run from the root of a checkout: `python3 chip_smoke.py`. The last line is
 `{"ok": true, "device": {...}}`; the line before it the card's name and power
 limit, and before that one JSON line describing the kernels (times of phase
-15; launches summed over phases 12, 16, 17, 18 and 20-23, each counted
+15; launches summed over phases 12, 16, 17, 18 and 20-26, each counted
 around its main path's calls only). `python3 chip_smoke.py --kernels-only`
 runs phases 1-3, 7, 8 and 15
 (launch counts not taken) and prints no result line.
@@ -633,6 +659,121 @@ JAX_REF8 = {
 # phase 19: the point statistics `load_atlas` recomputes (`update_point_stats`)
 RECOMPUTED = ("pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist")
 
+# Slice 9: the depth sensors and the fisheye camera, each through its
+# `System` entry point at a shipped configuration's full width (as dicts:
+# the card's Python has no YAML parser). Phase 24: `configs/kitti.yaml` with
+# ORB-SLAM3's `Examples/Stereo/KITTI00-02.yaml` Camera.bf; phase 25:
+# `configs/tum.yaml` with `Examples/RGB-D/TUM1.yaml`'s Camera.bf and
+# DepthMapFactor, the depth fed as uint16 sensor units; phase 26:
+# `configs/tum_vi.yaml` (KB8) as it is. Frame i is stamped i / camera.fps.
+KITTI_BF = 386.1448
+TUM_BF = 40.0
+TUM_DEPTH_FACTOR = 5000.0
+KITTI_SETTINGS = {
+    "camera": {"model": "pinhole", "fx": 718.856, "fy": 718.856, "cx": 607.1928,
+               "cy": 185.2157, "dist": (0.0, 0.0, 0.0, 0.0), "width": 1241, "height": 376,
+               "fps": 10.0, "rgb": False, "baseline": KITTI_BF / 718.856},
+    "orb": {"n_features": 2000, "scale_factor": 1.2, "n_levels": 8, "ini_th_fast": 20.0,
+            "min_th_fast": 7.0},
+    "kf_capacity": 1024, "pt_capacity": 32768,
+}
+TUM_SETTINGS = {
+    "camera": {"model": "pinhole", "fx": 535.4, "fy": 539.2, "cx": 320.1, "cy": 247.6,
+               "dist": (0.0, 0.0, 0.0, 0.0), "width": 640, "height": 480, "fps": 30.0,
+               "rgb": True, "baseline": TUM_BF / 535.4,
+               "depth_map_factor": 1.0 / TUM_DEPTH_FACTOR},
+    "orb": {"n_features": 1000, "scale_factor": 1.2, "n_levels": 8, "ini_th_fast": 20.0,
+            "min_th_fast": 7.0},
+    "kf_capacity": 512, "pt_capacity": 16384,
+}
+TUM_VI_SETTINGS = {
+    "camera": {"model": "kb8", "fx": 190.97847715128717, "fy": 190.9733070521226,
+               "cx": 254.93170605935475, "cy": 256.8974428996504,
+               "dist": (0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202,
+                        0.00020293673591811182),
+               "width": 512, "height": 512, "fps": 20.0, "rgb": False},
+    "orb": {"n_features": 1000, "scale_factor": 1.2, "n_levels": 8, "ini_th_fast": 20.0,
+            "min_th_fast": 7.0},
+    "kf_capacity": 512, "pt_capacity": 16384,
+}
+N_FRAMES9 = 40
+# The JAX CPU reference of phase 24 runs at smaller capacities: its point
+# statistics hold a [kf_capacity, pt_capacity, 256] descriptor gather, 35 GB
+# of host memory at KITTI's 1024 x 32768. Capacities change no output while
+# the map stays inside them; the card runs KITTI's and is held to stay
+# inside these.
+REF9_CAPS = {24: (128, 16384)}
+# the worlds (PlaneWorld(seed=7, tex_size=TEX_SIZE, ...)) and trajectories
+# (smooth_trajectory(N_FRAMES9, ...)): phase 25's nearer world keeps the
+# scene inside th_depth (40 x 0.0747 m), so keyframes create close points
+WORLD9 = {24: dict(plane_z=6.0, extent=36.0), 25: dict(plane_z=2.5, extent=15.0),
+          26: dict(plane_z=6.0, extent=36.0, **DENSE_WORLD)}
+TRAJ9 = {24: dict(lateral=2.0, forward=0.8, yaw=0.08),
+         25: dict(lateral=0.8, forward=0.3, yaw=0.08),
+         26: dict(lateral=2.0, forward=0.6, yaw=0.08)}
+# phase 26's fisheye frames are warped from pinhole renders covering the
+# lens out to this angle; pixels beyond it are black, as outside a real
+# fisheye's image circle
+FISHEYE_THETA_MAX = float(np.deg2rad(60.0))
+STEREO_RTOL = 0.02         # stereo matches per frame against the JAX CPU reference
+# The JAX package's CPU references of phases 24-26 (`python
+# tests/test_torch_slice.py --slice9 [stereo|rgbd|kb8]`: its System on the
+# same frames, with the port's repair of the pipelined retire, fault v):
+# the init (frame pair; the first frame with a pose), the frames that made
+# keyframes, n_kf, n_pt, valid points, per call the stereo (or depth)
+# matches of the frame, per depth-created batch (keyframe slot, points), the
+# stored observations with a right u, the ATE against ground truth (m;
+# SE3-aligned on the first pose, and Sim3-aligned), the frames with a pose,
+# and for KB8 the two-view init under the draws of agents 0-5 (frame pair,
+# homography, good points; fault o).
+JAX_REF9 = {'stereo': {'init_pair': [0, 0],
+            'first_pose': 0,
+            'final_state': 'OK',
+            'kf_frames': [0, 1, 11, 17, 27, 34, 38],
+            'n_kf': 7,
+            'n_pt': 2786,
+            'n_valid_points': 520,
+            'stereo_matches': [705, 688, 615, 579, 554, 597, 564, 527, 528, 511, 538, 483, 479,
+                               465, 437, 437, 472, 446, 452, 450, 458, 410, 413, 419, 410, 369,
+                               332, 332, 375, 352, 414, 461, 415, 412, 406, 400, 406, 386, 351,
+                               351],
+            'close_points': [[0, 705], [1, 373], [2, 282], [3, 286], [4, 160], [5, 239],
+                             [6, 234]],
+            'stereo_obs': 2750,
+            'ate_metric_m': 0.010802111393767036,
+            'ate_sim3_m': 0.00840417668223381,
+            'n_tracked': 40},
+ 'rgbd': {'init_pair': [0, 0],
+          'first_pose': 0,
+          'final_state': 'OK',
+          'kf_frames': [0, 1, 5, 9, 12],
+          'n_kf': 5,
+          'n_pt': 2635,
+          'n_valid_points': 975,
+          'stereo_matches': [817, 801, 771, 851, 863, 851, 821, 822, 778, 730, 693, 733, 714,
+                             690, 680, 686, 670, 681, 654, 650, 623, 610, 590, 595, 627, 612,
+                             579, 560, 578, 572, 549, 565, 553, 525, 505, 451, 476, 504, 462,
+                             499],
+          'close_points': [[0, 831], [1, 252], [2, 472], [3, 490], [4, 558]],
+          'stereo_obs': 3214,
+          'ate_metric_m': 0.0040932992565872245,
+          'ate_sim3_m': 0.003575177164748311,
+          'n_tracked': 40},
+ 'kb8': {'init_pair': [0, 2],
+         'first_pose': 2,
+         'final_state': 'OK',
+         'kf_frames': [0, 2, 3, 7, 12, 32, 37],
+         'n_kf': 7,
+         'n_pt': 1676,
+         'n_valid_points': 676,
+         'ate_metric_m': 0.5975856893570254,
+         'ate_sim3_m': 0.00709697138518095,
+         'n_tracked': 38,
+         'used_homography': True,
+         'n_init_good': 336,
+         'init_by_seed': [[[0, 2], True, 336], [[0, 2], True, 333], [[0, 4], False, 237],
+                          [[0, 1], False, 445], [[0, 1], False, 439], [[0, 1], False, 442]]}}
+
 # K1 against its twin: the same floats in the same order, so identical bits;
 # the angle may differ where atan2f and PyTorch's atan2 round differently
 ANGLE_ATOL = 1e-6
@@ -655,6 +796,90 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K1_OPS_PER_KEYPOINT = 5 * 31 * 31 + 6 * 512 + 256
 TABLE_LS = (8, 20, L_SYSTEM)   # BA windows: the init BA, slice 2, System's keyframe BA
+
+
+def settings9(phase: int, module):
+    """Phase 24-26's settings through `module.settings_from_dict` (the port's
+    `io.config`, or the JAX package's for its reference run)."""
+    d = {24: KITTI_SETTINGS, 25: TUM_SETTINGS, 26: TUM_VI_SETTINGS}[phase]
+    return module.settings_from_dict({k: dict(v) if isinstance(v, dict) else v
+                                      for k, v in d.items()})
+
+
+def depth_to_sensor(depth):
+    """Metric depth [h,w] -> uint16 TUM sensor units (m x 5000)."""
+    return np.clip(np.round(np.asarray(depth, np.float64) * TUM_DEPTH_FACTOR), 0,
+                   65535).astype(np.uint16)
+
+
+def fisheye_source(params):
+    """The pinhole camera (K, size) whose renders phase 26 warps into the
+    fisheye: the fisheye's focal lengths, square, covering FISHEYE_THETA_MAX."""
+    half = int(np.ceil(max(params[0], params[1]) * np.tan(FISHEYE_THETA_MAX))) + 2
+    return (float(params[0]), float(params[1]), float(half), float(half)), 2 * half + 1
+
+
+def fisheye_field(params, h: int, w: int):
+    """For every fisheye pixel its source pixel in the `fisheye_source`
+    render (x, y [h,w] f32) and whether its ray lies inside the image
+    circle: the KB8 polynomial inverted by Newton in float64."""
+    fx, fy, cx, cy = (float(v) for v in params[:4])
+    k = [float(v) for v in params[4:8]]
+    v, u = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                       indexing="ij")
+    mx, my = (u - cx) / fx, (v - cy) / fy
+    d = np.hypot(mx, my)
+    theta = d.copy()
+    for _ in range(30):
+        t2 = theta * theta
+        f = theta * (1 + t2 * (k[0] + t2 * (k[1] + t2 * (k[2] + t2 * k[3])))) - d
+        fp = 1 + t2 * (3 * k[0] + t2 * (5 * k[1] + t2 * (7 * k[2] + 9 * t2 * k[3])))
+        theta = theta - f / fp
+    inside = theta <= FISHEYE_THETA_MAX
+    scale = np.where(d > 1e-12, np.tan(np.minimum(theta, FISHEYE_THETA_MAX)) / np.maximum(d, 1e-12),
+                     1.0)
+    Ks, _ = fisheye_source(params)
+    return ((Ks[0] * mx * scale + Ks[2]).astype(np.float32),
+            (Ks[1] * my * scale + Ks[3]).astype(np.float32), inside)
+
+
+def warp_to_fisheye(img, field):
+    """Bilinear resampling of a `fisheye_source` render [S,S] into the
+    fisheye image; black outside the image circle. numpy f32, so the card's
+    and the reference's frames come from the same arithmetic."""
+    img = np.asarray(img, np.float32)
+    fx_, fy_, inside = field
+    S = img.shape[0]
+    x = np.clip(fx_, 0, S - 1.001)
+    y = np.clip(fy_, 0, S - 1.001)
+    x0, y0 = x.astype(np.int32), y.astype(np.int32)
+    ax, ay = x - x0, y - y0
+    out = (img[y0, x0] * (1 - ax) * (1 - ay) + img[y0, x0 + 1] * ax * (1 - ay)
+           + img[y0 + 1, x0] * (1 - ax) * ay + img[y0 + 1, x0 + 1] * ax * ay)
+    return np.where(inside, out, np.float32(0.0)).astype(np.float32)
+
+
+def _se3_matrix(T):
+    """[qw qx qy qz tx ty tz] world->camera -> 4x4 float64."""
+    w, x, y, z = (float(v) for v in T[:4])
+    n = np.sqrt(w * w + x * x + y * y + z * z)
+    w, x, y, z = w / n, x / n, y / n, z / n
+    M = np.eye(4)
+    M[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                 [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                 [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
+    M[:3, 3] = np.asarray(T[4:7], np.float64)
+    return M
+
+
+def metric_ate(est, gt) -> float:
+    """ATE (RMSE of camera centers, m) after aligning the first estimated
+    pose to the first true one by SE3 only: a metric sensor's scale error
+    shows directly (`tests/test_stereo.py:_metric_ate`)."""
+    A = _se3_matrix(gt[0]) @ np.linalg.inv(_se3_matrix(est[0]))
+    errs = [np.linalg.norm(np.linalg.inv(A @ _se3_matrix(e))[:3, 3]
+                           - np.linalg.inv(_se3_matrix(g))[:3, 3]) for e, g in zip(est, gt)]
+    return float(np.sqrt(np.mean(np.square(errs))))
 
 
 def card_line() -> str:
@@ -1117,10 +1342,10 @@ def adversarial_frame(dev):
     return raws, blurs, torch.cat(xys), offsets
 
 
-def check_k1(name, raws, blurs, xy, offsets):
-    """Phase 3: one K1 launch for the frame against the twin, level by
-    level: 0 differing descriptor bits, angles within ANGLE_ATOL. Returns
-    the largest angle difference."""
+def check_k1(name, raws, blurs, xy, offsets, tag=3):
+    """Phase 3 (and phase 24's stereo pair): one K1 launch for the frame
+    against the twin, level by level: 0 differing descriptor bits, angles
+    within ANGLE_ATOL. Returns the largest angle difference."""
     import torch
 
     from dvm_slam_tpu_torch.ops import orb_descriptor, orb_kernel
@@ -1134,11 +1359,11 @@ def check_k1(name, raws, blurs, xy, offsets):
     for lv, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
         err = float((ang_k[a:b] - ang_t[a:b]).abs().max()) if b > a else 0.0
         diff = int((desc_k[a:b] != desc_t[a:b]).sum())
-        print(f"[3] {name} level {lv} {tuple(raws[lv].shape)} N={b - a}: angle max err "
+        print(f"[{tag}] {name} level {lv} {tuple(raws[lv].shape)} N={b - a}: angle max err "
               f"{err:.3e}, {diff} differing bits")
     worst = float((ang_k - ang_t).abs().max())
     n_diff = int((desc_k != desc_t).sum())
-    print(f"[3] {name}, one launch for {len(raws)} levels: angle max abs err {worst:.3e} (atol "
+    print(f"[{tag}] {name}, one launch for {len(raws)} levels: angle max abs err {worst:.3e} (atol "
           f"{ANGLE_ATOL}), differing bits {n_diff}/{desc_k.numel()}")
     check(bool(torch.isfinite(ang_k).all()), f"{name}: non-finite K1 angle")
     check(worst <= ANGLE_ATOL, f"{name}: K1 angle error {worst} > {ANGLE_ATOL}")
@@ -1289,6 +1514,20 @@ def kernel_table(dev, card, img_full, counts):
     print(f"[15] K1 per frame (one call, 8 levels at 600x350, N={n}): wrapper {wrap:.2f} us, "
           f"device {dv:.2f} us (profiler {prof}), bound {b:.3f} us ({by}: {nbytes / 1e6:.3f} MB, "
           f"{nops / 1e6:.2f} Mop), no single PyTorch call, twin {plain:.2f} us on {card}")
+    # K1 per stereo pair: one call for both views' 16 levels at KITTI width
+    raws, blurs, xy, offsets = stereo_pair_inputs(dev)
+    n = xy.shape[0]
+    fn = lambda: orb_kernel.orient_and_describe_levels(raws, blurs, xy, offsets)  # noqa: E731
+    wrap2, dv2 = time_ms(fn, 200) * 1e3, device_us(fn)
+    plain2 = time_ms(lambda: orb_descriptor.orient_and_describe_levels(raws, blurs, xy, offsets),
+                     20) * 1e3
+    nbytes = (4 * (2 * sum(r.numel() for r in raws) + 2 * n + n) + n * orb_descriptor.DESC_BITS
+              + orb_descriptor.PATTERN.nbytes)
+    b2, by2 = bound_us(nbytes, n * K1_OPS_PER_KEYPOINT)
+    rows["orb_describe"]["stereo"] = dict(wrap=wrap2, dev=dv2, bound=b2, by=by2, plain=plain2)
+    print(f"[15] K1 per stereo pair (one call, 2 x 8 levels at 1241x376, N={n}): wrapper "
+          f"{wrap2:.2f} us, device {dv2:.2f} us, bound {b2:.3f} us ({by2}: {nbytes / 1e6:.3f} MB), "
+          f"twin {plain2:.2f} us on {card}")
 
     # K2 and K3 at System's window (L = 32) and the slice-2 and init windows
     for L in TABLE_LS:
@@ -2209,6 +2448,220 @@ def check_phase23(agents, bus, rec, traj, card):
     print(f"[23] bytes per channel: {bus.bandwidth_report()['bytes_by_channel']}")
 
 
+# --------------------------------------------------------------------------
+# slice 9: the depth sensors and the fisheye camera (phases 24-26)
+# --------------------------------------------------------------------------
+
+SENSOR9 = {24: "stereo", 25: "rgbd", 26: "monocular"}
+MODE9 = {24: "stereo", 25: "rgbd", 26: "kb8"}
+
+
+def scene9(phase: int, device, n_frames: int = N_FRAMES9):
+    """Phase `phase`'s inputs, rendered on the card by the port's world, and
+    the ground-truth poses: per frame the stereo pair (24), the image and its
+    uint16 depth on the host (25), or the fisheye image (26)."""
+    import torch
+
+    from dvm_slam_tpu_torch.io import config, synthetic
+
+    cam = settings9(phase, config).camera
+    world = synthetic.PlaneWorld(seed=7, tex_size=TEX_SIZE, device=device, **WORLD9[phase])
+    poses = synthetic.smooth_trajectory(n_frames, **TRAJ9[phase])
+    K = tuple(float(v) for v in cam.K())
+    h, w = cam.out_height, cam.out_width
+    if phase == 26:
+        Ks, S = fisheye_source(cam.params())
+        field = fisheye_field(cam.params(), h, w)
+    frames = []
+    for p in poses:
+        if phase == 24:
+            frames.append(world.render_stereo(p, K, h, w, cam.baseline))
+        elif phase == 25:
+            frames.append((world.render(p, K, h, w),
+                           depth_to_sensor(world.render_depth(p, K, h, w).cpu().numpy())))
+        else:
+            fish = warp_to_fisheye(world.render(p, Ks, S, S).cpu().numpy(), field)
+            frames.append((torch.from_numpy(fish).to(device),))
+    return frames, poses
+
+
+def stereo_pair_inputs(device):
+    """K1's inputs for phase 24's first pair as `make_frame_stereo` makes
+    them: both views' levels in one 16-entry table."""
+    from dvm_slam_tpu_torch.io import config
+
+    frames, _ = scene9(24, device, 1)
+    fc = settings9(24, config).frontend_config()
+    rl, bl, xl, off = frame_inputs(frames[0][0], fc)
+    rr, br, xr, _ = frame_inputs(frames[0][1], fc)
+    import torch
+
+    F = fc.capacity
+    return rl + rr, bl + br, torch.cat([xl, xr]), list(off) + [F + o for o in off[1:]]
+
+
+def run_sensor(phase: int, frames, device, use_kernel, out_dir):
+    """Phase `phase`'s frames through a fresh port System from frame 0
+    (`track_stereo`, `track_rgbd` or, for KB8, `track_monocular`), each call
+    synchronised and timed; then `save_trajectory_tum` and its rows read
+    back. Returns a dict of the run's outcomes."""
+    import torch
+
+    from dvm_slam_tpu_torch.geometry import two_view
+    from dvm_slam_tpu_torch.io import config, trajectory
+    from dvm_slam_tpu_torch.models.system import System
+    from dvm_slam_tpu_torch.tracking import tracker as trk
+
+    settings = settings9(phase, config)
+    fps = settings.camera.fps
+    log = {"stereo_matches": [], "close_points": [], "inits": []}
+    saved = (trk.make_frame_stereo, trk.make_frame_rgbd, trk.create_points_from_depth,
+             two_view.reconstruct_two_views)
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            f = fn(*args, **kwargs)
+            log["stereo_matches"].append(int((f.ur >= 0).sum()))
+            return f
+        return wrapped
+
+    def close_points(m, slot, *args, **kwargs):
+        m2, n = saved[2](m, slot, *args, **kwargs)
+        log["close_points"].append((int(slot), int(n)))
+        return m2, n
+
+    def recording(*args, **kwargs):
+        res = saved[3](*args, **kwargs)
+        log["inits"].append(res)
+        return res
+
+    trk.make_frame_stereo, trk.make_frame_rgbd = counted(saved[0]), counted(saved[1])
+    trk.create_points_from_depth, two_view.reconstruct_two_views = close_points, recording
+    try:
+        sysm = System(settings, sensor=SENSOR9[phase], device=device, use_kernel=use_kernel)
+        t = sysm.tracker
+        init_pair, init_map, ms = None, None, []
+        for i, fr in enumerate(frames):
+            was = t.state
+            t0 = time.perf_counter()
+            if phase == 24:
+                sysm.track_stereo(fr[0], fr[1], i / fps)
+            elif phase == 25:
+                sysm.track_rgbd(fr[0], fr[1], i / fps)
+            else:
+                sysm.track_monocular(fr[0], i / fps)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if was == trk.NOT_INITIALIZED and t.state == trk.OK and init_pair is None:
+                init_pair = (int(round(t._init_ts * fps)) if phase == 26 else i, i)
+                n = int(t.map.n_pt)
+                init_map = (t.map.kf_pose[:2].clone(), n, t.map.pt_pos[:n].clone())
+        path = os.path.join(out_dir, f"phase{phase}_{'plain' if use_kernel is False else 'kernels'}"
+                                     f"_tum.txt")
+        sysm.save_trajectory_tum(path)
+    finally:
+        (trk.make_frame_stereo, trk.make_frame_rgbd, trk.create_points_from_depth,
+         two_view.reconstruct_two_views) = saved
+    rows = trajectory.load_tum(path)
+    m = sysm.map
+    n_kf = int(m.n_kf)
+    ur, obs = m.kf_ur[:n_kf], m.kf_obs[:n_kf]
+    return dict(system=sysm, init_pair=init_pair, init_map=init_map, ms=ms, log=log,
+                frames=[int(round(ts * fps)) for ts, _ in rows],
+                poses=np.stack([T for _, T in rows]),
+                kf_frames=sorted(int(round(ts * fps)) for ts in t.kf_timestamps.values()),
+                n_kf=n_kf, n_pt=int(m.n_pt), n_valid=int(m.pt_valid.sum()),
+                stereo_obs=int(((ur >= 0) & (obs >= 0)).sum()), state=t.state,
+                finite=bool(torch.isfinite(m.kf_pose[:n_kf]).all())
+                and bool(torch.isfinite(m.pt_pos).all()))
+
+
+def check_phase9(phase: int, runs, poses_gt, counts, card):
+    """Phases 24-26 held to the JAX CPU reference (`JAX_REF9`) and the
+    kernel path to the plain path."""
+    from dvm_slam_tpu_torch.eval import metrics
+
+    ref = JAX_REF9[MODE9[phase]]
+    k, p = runs["kernels"], runs["plain"]
+    n = len(k["ms"])
+    gt = np.stack([np.asarray(poses_gt[i]) for i in k["frames"]])
+    ate_m = metric_ate(k["poses"], gt)
+    ate_s = float(metrics.ate_rmse(k["poses"], gt)[0])
+    tag = f"[{phase}]"
+    print(f"{tag} {MODE9[phase]}: init {k['init_pair']} (JAX CPU ref {tuple(ref['init_pair'])}); "
+          f"final state {k['state']}; frames with a pose {len(k['frames'])} (ref "
+          f"{ref['n_tracked']}); keyframes at frames {k['kf_frames']} (ref {ref['kf_frames']}); "
+          f"n_kf {k['n_kf']}, n_pt {k['n_pt']} (ref {ref['n_kf']}, {ref['n_pt']}), valid points "
+          f"{k['n_valid']} (ref {ref['n_valid_points']})")
+    print(f"{tag} ATE SE3-aligned (metric) {ate_m:.6f} m (ref {ref['ate_metric_m']:.6f}), "
+          f"Sim3-aligned {ate_s:.6f} m (ref {ref['ate_sim3_m']:.6f})")
+    for name, run in (("kernels", k), ("plain", p)):
+        t = np.asarray(run["ms"][1:])
+        print(f"{tag} System call with {name}: frame 0 {run['ms'][0]:.2f} ms, later calls median "
+              f"{np.median(t):.2f} ms, p90 {np.percentile(t, 90):.2f} ms, max {t.max():.2f} ms "
+              f"(n={len(t)}) on {card}")
+    print(f"{tag} launches {counts}")
+    check(k["state"] == "OK" and k["finite"], f"{tag} final state {k['state']}, or a non-finite map")
+    check(counts["orb_describe"] == n, f"{tag} {counts['orb_describe']} K1 launches for {n} calls")
+    check(abs(k["n_kf"] - ref["n_kf"]) <= 1, f"{tag} {k['n_kf']} keyframes, ref {ref['n_kf']}")
+    steps = k["system"].mapper.ba_iters + 6    # LM steps of one keyframe BA
+    if phase in (24, 25):
+        sm, rsm = k["log"]["stereo_matches"], ref["stereo_matches"]
+        worst = max(abs(a - b) / b for a, b in zip(sm, rsm))
+        print(f"{tag} matches with depth per frame {sm}; largest difference from the ref's "
+              f"{worst:.2%} (bound {STEREO_RTOL:.0%}); close points per keyframe "
+              f"{k['log']['close_points']} (ref {ref['close_points']}); stored observations "
+              f"with a right u {k['stereo_obs']} (ref {ref['stereo_obs']})")
+        n_ba = k["n_kf"] - 1      # the depth init has one keyframe and no BA
+        check(k["init_pair"] == (0, 0) and k["frames"] == list(range(n)),
+              f"{tag} init {k['init_pair']}, frames with a pose {k['frames']}")
+        check(len(sm) == n and worst <= STEREO_RTOL, f"{tag} matches with depth off the ref's")
+        check(ate_m < 3 * ref["ate_metric_m"], f"{tag} metric ATE {ate_m} >= 3x the ref's")
+        check(k["stereo_obs"] > 0.5 * ref["stereo_obs"], f"{tag} few stored right-u observations")
+        check(counts["onehot_adjoint"] == steps * n_ba and counts["onehot_gather"]
+              == (steps + 1) * n_ba, f"{tag} K2/K3 launches {counts} for {n_ba} BAs")
+        check(n_ba >= 1, f"{tag} no keyframe BA ran")
+        if phase in REF9_CAPS:
+            caps = REF9_CAPS[phase]
+            check(k["n_kf"] < caps[0] and k["n_pt"] < caps[1],
+                  f"{tag} the map outgrew the reference's capacities {caps}")
+        if phase == 25:
+            later = sum(c for s, c in k["log"]["close_points"] if s > 0)
+            check(later > 0, f"{tag} no close points created at keyframes after the first")
+        check(p["log"]["stereo_matches"] == sm, f"{tag} the plain path's stereo matches differ")
+    else:
+        ip = k["init_pair"]
+        seeds = ref["init_by_seed"]
+        init = k["log"]["inits"][-1] if k["log"]["inits"] else None
+        n_good = int(init.good.sum()) if init is not None else 0
+        ref_good = [g for _, _, g in seeds]
+        print(f"{tag} init at {ip}, homography {bool(init.used_homography) if init else None}, "
+              f"good points {n_good}; JAX CPU ref over agents 0-5: {seeds}")
+        check(ip is not None and ip[0] <= max(s[0][0] for s in seeds) + 1
+              and ip[1] <= max(s[0][1] for s in seeds) + 1,
+              f"{tag} init at {ip}, later than the ref's spread")
+        check((1 - INIT_GOOD_RTOL) * min(ref_good) <= n_good
+              <= (1 + INIT_GOOD_RTOL) * max(ref_good), f"{tag} {n_good} initial good points")
+        check(k["frames"] == list(range(ip[1], n)), f"{tag} frames with a pose {k['frames']}")
+        check(ate_s < 3 * ref["ate_sim3_m"], f"{tag} ATE {ate_s} >= 3x the ref's")
+        want2 = (INIT_BA_ITERS + 6) + (k["n_kf"] - 2) * steps
+        check(counts["onehot_adjoint"] == want2
+              and counts["onehot_gather"] == want2 + 1 + (k["n_kf"] - 2),
+              f"{tag} K2/K3 launches {counts}")
+        (P_k, n_k, X_k), (P_p, n_p, X_p) = k["init_map"], p["init_map"]
+        d_init = float((P_k - P_p).abs().max())
+        print(f"{tag} plain path: init {p['init_pair']}, initial poses differ by {d_init:.3e}")
+        check(p["init_pair"] == ip and n_p == n_k and d_init <= POSE_ATOL,
+              f"{tag} the plain path initialized otherwise")
+    d_pose = (float(np.abs(k["poses"] - p["poses"]).max()) if k["frames"] == p["frames"]
+              else float("inf"))
+    print(f"{tag} plain path: keyframes at {p['kf_frames']}; rows identical "
+          f"{k['frames'] == p['frames']}, poses differ by {d_pose:.3e}")
+    check(p["kf_frames"] == k["kf_frames"], f"{tag} keyframes differ between the paths")
+    check(d_pose <= POSE_ATOL2, f"{tag} poses differ by {d_pose} between the paths")
+
+
 def time_host_ms(fn, reps: int) -> float:
     out = []
     for _ in range(reps):
@@ -2813,6 +3266,29 @@ def main(kernels_only: bool = False) -> int:
           f"rounds in {time.perf_counter() - t0:.2f} s; launches {counts6['phase 23']}")
     check_phase23(agents23, bus23, rec23, traj23, card)
     phase_done(23)
+
+    # ---- 24-26. stereo at KITTI width, RGB-D at TUM width, KB8 at TUM-VI width,
+    # each through its System entry point, kernels then plain versions
+    for phase in (24, 25, 26):
+        frames9, poses9 = scene9(phase, dev)
+        if phase == 24:
+            worst_ang = max(worst_ang, check_k1("stereo pair", *stereo_pair_inputs(dev), tag=24))
+        runs9 = {}
+        for name, uk in (("kernels", None), ("plain", False)):
+            before = counts_now()
+            if name == "kernels":
+                zero_counts()
+            t0 = time.perf_counter()
+            runs9[name] = run_sensor(phase, frames9, dev, uk, out_dir)
+            print(f"[{phase}] {name}: {len(frames9)} calls in {time.perf_counter() - t0:.2f} s")
+            if name == "kernels":
+                counts9 = counts_now()
+            else:
+                check(counts_now() == before, f"[{phase}] the plain path launched a kernel")
+        counts6[f"phase {phase}"] = counts9
+        check_phase9(phase, runs9, poses9, counts9, card)
+        del runs9, frames9
+        phase_done(phase)
     print(f"total {time.perf_counter() - t_start:.2f} s")
 
     errs = {"orb_describe": worst_ang, "onehot_adjoint": k2_err, "onehot_gather": k3_err}

@@ -1,10 +1,10 @@
-"""Pinhole camera with radial-tangential keypoint undistortion.
+"""Camera models: pinhole with radial-tangential keypoint undistortion, and
+Kannala-Brandt-8 fisheye.
 
-Port of the pinhole part of `dvm_slam_tpu/geometry/cameras.py` (KB8 fisheye
-waits for the sensor-mode slice). As in the reference, distortion is removed
-from detected keypoints once per frame, so all downstream geometry works on
-ideal pinhole coordinates. `K = [fx, fy, cx, cy]`, `dist = [k1, k2, p1, p2,
-(k3)]`.
+Port of `dvm_slam_tpu/geometry/cameras.py`. As in the reference, distortion
+is removed from detected keypoints once per frame, so all downstream geometry
+works on ideal pinhole coordinates: pinhole `K = [fx, fy, cx, cy]`, `dist =
+[k1, k2, p1, p2, (k3)]`; KB8 `params = [fx, fy, cx, cy, k1, k2, k3, k4]`.
 """
 
 from __future__ import annotations
@@ -70,3 +70,79 @@ def undistort_pixels(K, dist, uv, iters: int = 10):
     u = K[..., 0] * xy[..., 0] + K[..., 2]
     v = K[..., 1] * xy[..., 1] + K[..., 3]
     return torch.stack([u, v], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Kannala-Brandt 8 (fisheye)
+# --------------------------------------------------------------------------
+
+def _theta_poly(k, theta):
+    t2 = theta * theta
+    return theta * (1.0 + t2 * (k[0] + t2 * (k[1] + t2 * (k[2] + t2 * k[3]))))
+
+
+def kb8_project(params, p):
+    """KB8 projection (`KannalaBrandt8::project`): the theta-polynomial
+    fisheye. Returns (uv [...,2], valid [...]), valid iff z > 1e-6."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    r2 = x * x + y * y
+    small = r2 < 1e-14
+    r = torch.sqrt(torch.where(small, 1.0, r2))
+    d = _theta_poly(params[4:8], torch.atan2(r, z))
+    scale = torch.where(small, torch.zeros_like(r), d / r)
+    # an on-axis point projects to the principal point
+    u = torch.where(small, fx * 0 + cx, fx * x * scale + cx)
+    v = torch.where(small, fy * 0 + cy, fy * y * scale + cy)
+    return torch.stack([u, v], dim=-1), z > 1e-6
+
+
+def kb8_unproject(params, uv, iters: int = 10):
+    """Invert the theta polynomial by `iters` Newton steps
+    (`KannalaBrandt8::unproject`). Returns the ray at z = 1, [...,3]."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k = params[4:8]
+    mx = (uv[..., 0] - cx) / fx
+    my = (uv[..., 1] - cy) / fy
+    d = torch.sqrt(torch.clamp(mx * mx + my * my, min=1e-18))
+    theta_d = torch.clamp(d, -torch.pi / 2, torch.pi / 2)
+    theta = theta_d
+    for _ in range(iters):
+        t2 = theta * theta
+        f = _theta_poly(k, theta) - theta_d
+        fp = 1.0 + t2 * (3 * k[0] + t2 * (5 * k[1] + t2 * (7 * k[2] + 9 * t2 * k[3])))
+        theta = theta - f / torch.where(torch.abs(fp) < _EPS, _EPS, fp)
+    scale = torch.where(d < 1e-9, 1.0, torch.tan(theta) / d)
+    return torch.stack([mx * scale, my * scale, torch.ones_like(mx)], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# dispatch by model name
+# --------------------------------------------------------------------------
+
+PINHOLE = "pinhole"
+KB8 = "kb8"
+
+
+def project(model: str, params, p):
+    if model == PINHOLE:
+        return pinhole_project(params[:4], p)
+    if model == KB8:
+        return kb8_project(params, p)
+    raise ValueError(f"unknown camera model {model!r}")
+
+
+def unproject(model: str, params, uv):
+    if model == PINHOLE:
+        return pinhole_unproject(params[:4], uv)
+    if model == KB8:
+        return kb8_unproject(params, uv)
+    raise ValueError(f"unknown camera model {model!r}")
+
+
+def intrinsic_matrix(params):
+    """[..., fx fy cx cy ...] -> [..., 3, 3] K."""
+    fx, fy, cx, cy = params[..., 0], params[..., 1], params[..., 2], params[..., 3]
+    z = torch.zeros_like(fx)
+    o = torch.ones_like(fx)
+    return torch.stack([fx, z, cx, z, fy, cy, z, z, o], dim=-1).reshape(params.shape[:-1] + (3, 3))

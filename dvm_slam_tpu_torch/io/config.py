@@ -70,7 +70,7 @@ class OrbSettings:
 @dataclasses.dataclass
 class ImuSettings:
     """`Settings::readIMU` fields and the body-camera extrinsic. Kept as
-    data; the inertial sensor modes are ROADMAP item 13."""
+    data; the inertial sensor modes are ROADMAP item 13b."""
     noise_gyro: float = 1.7e-4
     noise_acc: float = 2e-3
     gyro_walk: float = 1.9e-5
@@ -81,7 +81,7 @@ class ImuSettings:
 
     def calib(self):
         raise NotImplementedError("IMU calibration and the inertial modes are not ported yet "
-                                  "(ROADMAP item 13)")
+                                  "(ROADMAP item 13b)")
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 """Synthetic textured-plane world with exact ground-truth trajectories.
 
-Port of `make_texture`, `PlaneWorld.render`, `PlaneWorld.render_depth` and
-`smooth_trajectory` from `dvm_slam_tpu/io/synthetic.py`. The texture and the
+Port of `make_texture`, `PlaneWorld.render`, `PlaneWorld.render_depth`,
+`PlaneWorld.render_stereo` and `smooth_trajectory` from `dvm_slam_tpu/io/synthetic.py`. The texture and the
 plane layout come from the same numpy `RandomState` draws in the same order,
 so both packages build the same world; rendering is z-buffered ray/plane
 intersection with bilinear texture sampling, on the device the world lives
@@ -127,6 +127,15 @@ class PlaneWorld:
         parameter multiplies a unit-z camera direction, so it is the depth."""
         best_t, _, _ = self._hits(T_cw, K, h, w)
         return torch.where(torch.isfinite(best_t), best_t, 0.0)
+
+    def render_stereo(self, T_cw, K, h: int, w: int, baseline: float):
+        """Rectified stereo pair: the right camera is the left one moved by
+        +baseline along its x-axis, T_cw_right = Trans(-b) o T_cw_left.
+        Returns (img_l, img_r)."""
+        T_cw = torch.as_tensor(T_cw, dtype=torch.float32, device=self.device)
+        shift = torch.tensor([1.0, 0.0, 0.0, 0.0, -baseline, 0.0, 0.0], dtype=torch.float32,
+                             device=self.device)
+        return self.render(T_cw, K, h, w), self.render(lie.se3_mul(shift, T_cw), K, h, w)
 
 
 def smooth_trajectory(n_frames: int, lateral=2.5, forward=1.0, yaw=0.15,

@@ -87,8 +87,8 @@ def _gauss_newton(residual, retract, dof: int, poses, fixed, ei, ej, emeas, emas
         H.index_put_((ei, ej), Hij, accumulate=True)
         H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
         b = torch.zeros((N, dof), dtype=dtype, device=dev)
-        b.index_add_(0, ei, bi)
-        b.index_add_(0, ej, bj)
+        b.index_put_((ei,), bi, accumulate=True)   # one summation order on every run
+        b.index_put_((ej,), bj, accumulate=True)
 
         lam = damping * (1.0 + torch.einsum("nnii->", H) / (dof * N))
         H[nn, nn] += lam * eye

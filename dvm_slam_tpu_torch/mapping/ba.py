@@ -1,9 +1,11 @@
 """Windowed Levenberg-Marquardt bundle adjustment with Schur complement.
 
-Port of the monocular paths of `dvm_slam_tpu/mapping/ba.py`:
-`bundle_adjust` (`Optimizer::LocalBundleAdjustment` semantics) and
-`bundle_adjust_pcg`, the full-map solve of global BA. Stereo rows
-(`kf_ur`/`bf`) wait for the sensor-mode slice.
+Port of `dvm_slam_tpu/mapping/ba.py`: `bundle_adjust`
+(`Optimizer::LocalBundleAdjustment` semantics) and `bundle_adjust_pcg`, the
+full-map solve of global BA. A stereo or RGB-D observation (`kf_ur` >= 0,
+with `bf` = fx * baseline) adds the disparity row ur - (u - bf/z), gated at
+chi2(3 dof) = 7.815 with the Huber delta sqrt(7.815); its terms fold into
+the same 30 value planes, so K2 and K3 see the shapes of a monocular BA.
 
 Same layout as the reference: observation-indexed tensors keep F or P last
 (camera Jacobian planes [6,L,F], point planes [3,L,F], point blocks
@@ -31,7 +33,8 @@ port's own rule: the dense coupling [L,P,6,3] (one `index_put_` per LM step,
 every Schur product a matmul, the reduced system solved by block-Jacobi
 PCG) while it takes at most `DENSE_W_MAX_BYTES` (1 GiB, a small share of
 the card's 80 GB), else the matrix-free PCG whose matvecs scatter per
-observation (`index_add_`). Neither calls K2 or K3: the reference computes
+observation. Its scatters are `index_put_(accumulate=True)`, which sums in
+one order on every run. Neither calls K2 or K3: the reference computes
 global BA outside Pallas.
 """
 
@@ -46,6 +49,8 @@ from ..ops import scatter
 
 CHI2_MONO = 5.991
 HUBER_DELTA = math.sqrt(CHI2_MONO)
+CHI2_STEREO = 7.815  # chi2(3 dof)
+HUBER_DELTA_STEREO = math.sqrt(CHI2_STEREO)
 DENSE_W_MAX_BYTES = 1 << 30
 
 
@@ -122,11 +127,10 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
     """Windowed BA. kf_pose [L,7] world->camera; kf_fixed [L] bool; kf_xy
     [L,F,2]; kf_sigma2 [L,F]; obs_pt [L,F] int32 row into `pts` (-1 none);
     pts [P,3]; pt_opt [P] bool; K [4]. `use_kernel` picks K2/K3 or their
-    plain versions (`ops/scatter.py`). Runs `iters + stage2_iters + 1` LM
-    steps, each with one K3 and one K2 call, then one final K3 residual
-    pass. Returns (kf_pose', pts', total_chi2, inlier_mask [L,F])."""
-    if kf_ur is not None or bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
+    plain versions (`ops/scatter.py`). `kf_ur` [L,F] (-1: monocular) with
+    `bf` adds the stereo rows. Runs `iters + stage2_iters + 1` LM steps,
+    each with one K3 and one K2 call, then one final K3 residual pass.
+    Returns (kf_pose', pts', total_chi2, inlier_mask [L,F])."""
     L, F = obs_pt.shape
     P = pts.shape[0]
     dtype = pts.dtype
@@ -143,6 +147,10 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
     ru_obs = kf_xy[..., 0]
     rv_obs = kf_xy[..., 1]
     ii = torch.arange(L, device=dev)
+    stereo = None if kf_ur is None else (kf_ur >= 0.0) & obs_valid
+    chi2_th = CHI2_MONO if kf_ur is None else torch.where(stereo, CHI2_STEREO, CHI2_MONO)
+    delta_h = HUBER_DELTA if kf_ur is None else torch.where(stereo, HUBER_DELTA_STEREO,
+                                                            HUBER_DELTA)
 
     def compute_system(poses, points_pl):
         """Residuals + Jacobian planes, all [., L, F]. points_pl: [3,P]."""
@@ -175,15 +183,23 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
         Pv = -(R1[:, :, None] * a11[None] + R2[:, :, None] * a12[None])
 
         chi2 = (ru * ru + rv * rv) * info
+        if kf_ur is None:
+            rw = Jw = Pw = None
+        else:
+            # the stereo row: the u row's pattern with a02 -> a02 + bf/z^2
+            a02s = a02 + bf * inv_z * inv_z
+            rw = torch.where(stereo, kf_ur - (K[0] * x * inv_z + K[2] - bf * inv_z), 0.0)
+            Jw = torch.stack([-a00, zero, -a02s, -a02s * y, -a00 * z + a02s * x, a00 * y])
+            Pw = -(R0[:, :, None] * a00[None] + R2[:, :, None] * a02s[None])
+            chi2 = chi2 + rw * rw * info
         rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        w_base = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * (z > 0)
-        return ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base
+        w_base = info * torch.clamp(delta_h / rn, max=1.0) * (z > 0)
+        return ru, rv, rw, z, Ju, Jv, Jw, Pu, Pv, Pw, chi2, w_base
 
     def robust_cost(chi2, active):
         # Huber rho on the whitened squared residual (g2o's robustChi2)
         rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        rho = torch.where(rn <= HUBER_DELTA, chi2,
-                          2.0 * HUBER_DELTA * rn - HUBER_DELTA * HUBER_DELTA)
+        rho = torch.where(rn <= delta_h, chi2, 2.0 * delta_h * rn - delta_h * delta_h)
         return torch.sum(rho * active)
 
     poses, points_pl = kf_pose, pts.T
@@ -195,7 +211,7 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
 
     # +1 step so the last real step is itself cost-evaluated
     for k in range(iters + stage2_iters + 1):
-        ru, rv, z, Ju, Jv, Pu, Pv, chi2, w_base = compute_system(poses, points_pl)
+        ru, rv, rw, z, Ju, Jv, Jw, Pu, Pv, Pw, chi2, w_base = compute_system(poses, points_pl)
         # LM acceptance, deferred by one step: a state worse than the best
         # accepted one is reverted, lambda rises and the step is retried. A
         # non-finite cost counts as worse: the reference's `cost > best`
@@ -206,7 +222,7 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
         reject = ~(cost_cur <= best_cost)
         # stage boundary: past `iters` steps and on an accepted state, drop
         # outlier edges by chi2 at the current estimate
-        stage2_mask = (obs_valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dtype)
+        stage2_mask = (obs_valid & (chi2 <= chi2_th) & (z > 0)).to(dtype)
         do_stage = ~reject & (k >= iters) & ~stage_done
         active = torch.where(do_stage, stage2_mask, active)
         stage_done = stage_done | do_stage
@@ -230,6 +246,15 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
         HppV = (Puc[:, None] * Puc[None, :] + Pvc[:, None] * Pvc[None, :]) * w[None, None]
         bpV = Puc * (w * ru)[None] + Pvc * (w * rv)[None]          # [3,L,F]
         WV = (Juc[:, None] * Puc[None, :] + Jvc[:, None] * Pvc[None, :]) * w[None, None]
+        if kf_ur is not None:
+            ws = w * stereo
+            Jwc = Jw * free_cam[None, :, None]
+            Pwc = Pw * popt_obs[None]
+            Hcc = Hcc + torch.einsum("ilf,lf,jlf->lij", Jwc, ws, Jwc)
+            bc = bc + torch.einsum("ilf,lf->li", Jwc, ws * rw)
+            HppV = HppV + (Pwc[:, None] * Pwc[None, :]) * ws[None, None]
+            bpV = bpV + Pwc * (ws * rw)[None]
+            WV = WV + (Jwc[:, None] * Pwc[None, :]) * ws[None, None]
 
         # one adjoint scatter per step over the 30 stacked value planes
         # (HppV 9 | bpV 3 | WV 18), stored feature-major [L,F,30] (a
@@ -289,8 +314,8 @@ def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
     # the result is the best ACCEPTED state (the last step's proposal is
     # never evaluated), then a final residual pass classifies its edges
     sys_fin = compute_system(best_poses, best_points)
-    z, chi2 = sys_fin[2], sys_fin[7]
-    inliers = obs_valid & (chi2 <= CHI2_MONO) & (z > 0)
+    z, chi2 = sys_fin[3], sys_fin[10]
+    inliers = obs_valid & (chi2 <= chi2_th) & (z > 0)
     total = torch.sum(torch.where(inliers, chi2, 0.0))
     return best_poses, best_points.T, total, inliers
 
@@ -503,8 +528,6 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
     arguments as `bundle_adjust`; `dense` picks the Schur strategy (None:
     dense while the coupling takes at most DENSE_W_MAX_BYTES). Returns
     (kf_pose', pts', total_chi2, inlier_mask [L,F])."""
-    if kf_ur is not None or bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
     L, F = obs_pt.shape
     P = pts.shape[0]
     dtype, dev = pts.dtype, pts.device
@@ -525,6 +548,14 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     ii = torch.arange(L, device=dev)
     vmask3 = ovalid0.to(dtype)
+    if kf_ur is not None:
+        our = kf_ur.reshape(O)
+        stereo_o = (our >= 0.0) & ovalid0
+        stereo_f = stereo_o.to(dtype)
+        chi2_th = torch.where(stereo_o, CHI2_STEREO, CHI2_MONO)
+        delta_h = torch.where(stereo_o, HUBER_DELTA_STEREO, HUBER_DELTA)
+    else:
+        chi2_th, delta_h = CHI2_MONO, HUBER_DELTA
 
     def residuals(poses, points):
         X = points[optc]
@@ -533,29 +564,48 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
         inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
         ru = ouv[:, 0] - (K[0] * x * inv_z + K[2])
         rv = ouv[:, 1] - (K[1] * y * inv_z + K[3])
-        return ru, rv, x, y, z, inv_z
+        if kf_ur is None:
+            rw = torch.zeros_like(ru)
+        else:
+            rw = torch.where(stereo_o, our - (K[0] * x * inv_z + K[2] - bf * inv_z), 0.0)
+        return ru, rv, rw, x, y, z, inv_z
 
     def robust_cost(chi2, active):
         rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        rho = torch.where(rn <= HUBER_DELTA, chi2,
-                          2.0 * HUBER_DELTA * rn - HUBER_DELTA * HUBER_DELTA)
+        rho = torch.where(rn <= delta_h, chi2, 2.0 * delta_h * rn - delta_h * delta_h)
         return torch.sum(rho * active)
+
+    # the observations that exist, listed once per solve: the scatters add
+    # only these. index_put_ with accumulate sums each point's terms in one
+    # order on every run (index_add_'s float atomics do not), but it adds
+    # the terms of one index one after another: with the empty slots, all
+    # clamped to point 0, one call took 78 ms instead of 0.2 ms on the card
+    vobs = torch.nonzero(ovalid0).squeeze(1)
+    okf_v, optc_v = okf[vobs], optc[vobs]
 
     def scatter_p(v):
         out = torch.zeros((P,) + v.shape[1:], dtype=dtype, device=dev)
-        return out.index_add_(0, optc, v)
+        return out.index_put_((optc_v,), v[vobs], accumulate=True)
 
-    def schur_step(poses, Ju, Jv, Pu, Pv, w, ru, rv, lam):
-        """One damped Gauss-Newton step (dc [L,6], dp [P,3])."""
+    def schur_step(poses, Ju, Jv, Jw, Pu, Pv, Pw, w, ru, rv, rw, lam):
+        """One damped Gauss-Newton step (dc [L,6], dp [P,3]); Jw/Pw the
+        stereo rows' Jacobians or None."""
         ccv = w[:, None, None] * (Ju[:, :, None] * Ju[:, None, :] + Jv[:, :, None] * Jv[:, None, :])
         bcv = w[:, None] * (Ju * ru[:, None] + Jv * rv[:, None])
         hpv = w[:, None, None] * (Pu[:, :, None] * Pu[:, None, :] + Pv[:, :, None] * Pv[:, None, :])
         bpv = w[:, None] * (Pu * ru[:, None] + Pv * rv[:, None])
         Wo = w[:, None, None] * (Ju[:, :, None] * Pu[:, None, :] + Jv[:, :, None] * Pv[:, None, :])
+        if Jw is not None:
+            ws = w * stereo_f
+            ccv = ccv + ws[:, None, None] * (Jw[:, :, None] * Jw[:, None, :])
+            bcv = bcv + (ws * rw)[:, None] * Jw
+            hpv = hpv + ws[:, None, None] * (Pw[:, :, None] * Pw[:, None, :])
+            bpv = bpv + (ws * rw)[:, None] * Pw
+            Wo = Wo + ws[:, None, None] * (Jw[:, :, None] * Pw[:, None, :])
         Hcc = ccv.reshape(L, F, 6, 6).sum(dim=1)
         bc = bcv.reshape(L, F, 6).sum(dim=1)
-        Hpp = scatter_p(hpv * vmask3[:, None, None])
-        bp = scatter_p(bpv * vmask3[:, None])
+        Hpp = scatter_p(hpv)
+        bp = scatter_p(bpv)
 
         trp = torch.einsum("pii->p", Hpp)
         Hpp_d = Hpp + (lam * (1.0 + trp / 3.0))[:, None, None] * eye3
@@ -566,7 +616,7 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
 
         if dense:
             Wd = torch.zeros((L, P, 6, 3), dtype=dtype, device=dev)
-            Wd.index_put_((okf, optc), Wo * vmask3[:, None, None], accumulate=True)
+            Wd.index_put_((okf_v, optc_v), Wo[vobs], accumulate=True)
             A = (Wd @ Hpp_inv[None]).permute(0, 2, 1, 3).reshape(L * 6, P * 3)
             B = Wd.permute(0, 2, 1, 3).reshape(L * 6, P * 3)
             S = -(A @ B.T).reshape(L, 6, L, 6)
@@ -582,12 +632,11 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
             WTdc = (dc.reshape(1, -1) @ B).reshape(P, 3)
         else:
             def WT_x(xc):      # [L,6] -> [P,3]: W^T x, scattered per observation
-                v = torch.einsum("oij,oi->oj", Wo, xc[okf])
-                return scatter_p(v * vmask3[:, None])
+                return scatter_p(torch.einsum("oij,oi->oj", Wo, xc[okf]))
 
-            def W_u(u):        # [P,3] -> [L,6]
+            def W_u(u):        # [P,3] -> [L,6]; observations are [L,F] row-major
                 g = torch.einsum("oij,oj->oi", Wo, u[optc]) * vmask3[:, None]
-                return torch.zeros((L, 6), dtype=dtype, device=dev).index_add_(0, okf, g)
+                return g.reshape(L, F, 6).sum(dim=1)
 
             def S_mv(xc):      # the reduced camera system's matvec
                 Hx = torch.einsum("lij,lj->li", Hcc_d, xc)
@@ -623,8 +672,8 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
         best_cost = torch.full((), math.inf, dtype=dtype, device=dev)
         lam = torch.full((), damping, dtype=dtype, device=dev)
         for _ in range(n + 1):
-            ru, rv, x, y, z, inv_z = residuals(poses, points)
-            chi2 = (ru * ru + rv * rv) * oinfo
+            ru, rv, rw, x, y, z, inv_z = residuals(poses, points)
+            chi2 = (ru * ru + rv * rv + rw * rw) * oinfo
             cost_cur = robust_cost(chi2, active)
             reject = ~(cost_cur <= best_cost)        # a non-finite cost counts as worse
             best_cost = torch.where(reject, best_cost, cost_cur)
@@ -632,7 +681,7 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
             best_points = torch.where(reject, best_points, points)
             lam = torch.clamp(torch.where(reject, lam * 4.0, lam * 0.5), 1e-7, 1e3)
             rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            w = oinfo * active * torch.clamp(HUBER_DELTA / rn, max=1.0) * (z > 0)
+            w = oinfo * active * torch.clamp(delta_h / rn, max=1.0) * (z > 0)
 
             a00 = K[0] * inv_z
             a02 = -K[0] * x * inv_z * inv_z
@@ -646,19 +695,26 @@ def bundle_adjust_pcg(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, 
             Rm = lie.quat_to_matrix(lie.se3_q(poses))[okf]
             Pu = -(Rm[:, 0, :] * a00[:, None] + Rm[:, 2, :] * a02[:, None]) * popt[optc, None]
             Pv = -(Rm[:, 1, :] * a11[:, None] + Rm[:, 2, :] * a12[:, None]) * popt[optc, None]
-            dc, dp = schur_step(poses, Ju, Jv, Pu, Pv, w, ru, rv, lam)
+            Jw = Pw = None
+            if kf_ur is not None:
+                # the stereo row: the u row's pattern with a02 -> a02 + bf/z^2
+                a02s = a02 + bf * inv_z * inv_z
+                Jw = torch.stack([-a00, zero, -a02s, -a02s * y, -a00 * z + a02s * x, a00 * y], -1)
+                Jw = Jw * free_cam[okf, None]
+                Pw = -(Rm[:, 0, :] * a00[:, None] + Rm[:, 2, :] * a02s[:, None]) * popt[optc, None]
+            dc, dp = schur_step(poses, Ju, Jv, Jw, Pu, Pv, Pw, w, ru, rv, rw, lam)
             poses = torch.where(reject, best_poses, lie.se3_retract(poses, dc))
             points = torch.where(reject, best_points, points + dp)
         return best_poses, best_points
 
     poses, points = run_stage(kf_pose, pts, ovalid0.to(dtype), lm_iters)
     # stage 2: drop the outlier edges, re-optimize (the reference's two stages)
-    ru, rv, _, _, z, _ = residuals(poses, points)
-    chi2 = (ru * ru + rv * rv) * oinfo
-    stage2 = ovalid0 & (chi2 <= CHI2_MONO) & (z > 0)
+    ru, rv, rw, _, _, z, _ = residuals(poses, points)
+    chi2 = (ru * ru + rv * rv + rw * rw) * oinfo
+    stage2 = ovalid0 & (chi2 <= chi2_th) & (z > 0)
     poses, points = run_stage(poses, points, stage2.to(dtype), stage2_iters)
-    ru, rv, _, _, z, _ = residuals(poses, points)
-    chi2 = (ru * ru + rv * rv) * oinfo
-    inliers = ovalid0 & (chi2 <= CHI2_MONO) & (z > 0)
+    ru, rv, rw, _, _, z, _ = residuals(poses, points)
+    chi2 = (ru * ru + rv * rv + rw * rw) * oinfo
+    inliers = ovalid0 & (chi2 <= chi2_th) & (z > 0)
     total = torch.sum(torch.where(inliers, chi2, 0.0))
     return poses, points, total, inliers.reshape(L, F)

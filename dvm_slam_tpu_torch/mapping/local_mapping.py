@@ -3,12 +3,13 @@ and windowed BA, per new keyframe.
 
 Port of the per-keyframe chain of `dvm_slam_tpu/mapping/local_mapping.py`
 (`LocalMapping.cc` semantics): `cull_points`, `create_new_points`,
-`fuse_duplicates`, `_compact_obs`, `local_ba` (monocular, with the
-two-camera gauge pin), `_mapper_step` / `_mapper_chain`, the visual part
-of the host `LocalMapper`, the post-merge `global_ba` with
-`apply_gba_correction`, and `local_ba_batched` (B maps' windows in one
-solve, the agents' batch axis of `parallel/multi_agent.py`). The inertial
-stages wait for the sensor-mode slice (ROADMAP item 13).
+`fuse_duplicates`, `_compact_obs`, `local_ba` (with the two-camera gauge
+pin of a monocular window, or a stereo / RGB-D map's disparity rows and one
+anchor), `_mapper_step` / `_mapper_chain`, the visual part of the host
+`LocalMapper`, the post-merge `global_ba` with `apply_gba_correction`, and
+`local_ba_batched` (B monocular maps' windows in one solve, the agents'
+batch axis of `parallel/multi_agent.py`). The inertial stages wait for
+ROADMAP item 13b.
 
 Three rules keep the outputs equal to the reference's:
 
@@ -277,20 +278,21 @@ def cull_points(m: map_state.MapState, current_kf):
 # windowed bundle adjustment
 # --------------------------------------------------------------------------
 
-def _compact_obs(kf_xy, kf_sig, obs_pt, n_obs: int):
+def _compact_obs(kf_xy, kf_sig, obs_pt, n_obs: int, kf_ur=None):
     """Keep the `n_obs` best slots per keyframe row, valid observations
     first, each group in ascending feature order (stable)."""
     _, sel = _top_k((obs_pt >= 0).to(torch.float32), n_obs)       # [L,n_obs]
     return (torch.take_along_dim(kf_xy, sel[..., None], dim=1),
             torch.take_along_dim(kf_sig, sel, dim=1),
-            torch.take_along_dim(obs_pt, sel, dim=1))
+            torch.take_along_dim(obs_pt, sel, dim=1),
+            None if kf_ur is None else torch.take_along_dim(kf_ur, sel, dim=1))
 
 
 def _ba_window(m: map_state.MapState, center, n_local: int, n_fixed: int, n_pts: int,
-               n_levels: int, scale_factor: float, n_obs: int):
+               n_levels: int, scale_factor: float, n_obs: int, depth: bool = False):
     """`local_ba`'s window around `center` at fixed shapes: the BA's inputs
-    (poses, fixed, compacted observations, points, pt_opt) and what the
-    writeback needs."""
+    (poses, fixed, compacted observations, points, pt_opt; then the
+    compacted right-u, None unless `depth`) and what the writeback needs."""
     dev = m.pt_pos.device
     i32 = torch.int32
     scales = _level_scales(n_levels, scale_factor, dev)
@@ -341,22 +343,28 @@ def _ba_window(m: map_state.MapState, center, n_local: int, n_fixed: int, n_pts:
     fixed = fixed | (rows == 0) | ~rmask          # keyframe 0 is the gauge anchor
     # A monocular window needs the full Sim(3) gauge pinned: one fixed
     # camera leaves the scale direction free. Pin the two oldest valid rows
-    # whenever the window brought fewer than two anchors of its own.
+    # whenever the window brought fewer than two anchors of its own. The
+    # disparity rows of a depth map fix its scale, but it still needs one
+    # anchor when keyframe 0 is not in the window.
     ids = torch.where(rmask, rows, 2 ** 30)
     oldest = torch.min(ids)
-    second = torch.min(torch.where(ids == oldest, 2 ** 30, ids))
-    need = torch.sum(fixed & rmask) < 2
-    fixed = fixed | (need & ((rows == oldest) | (rows == second)) & rmask)
+    n_anchor = torch.sum(fixed & rmask)
+    if depth:
+        fixed = fixed | ((n_anchor == 0) & (rows == oldest) & rmask)
+    else:
+        second = torch.min(torch.where(ids == oldest, 2 ** 30, ids))
+        fixed = fixed | ((n_anchor < 2) & ((rows == oldest) | (rows == second)) & rmask)
 
     rowc = torch.clamp(rows, min=0).to(torch.int64)
     obs_pt_g = torch.where(rmask[:, None], m.kf_obs[rowc], -1)      # global slots
     obs_pt = torch.where(obs_pt_g >= 0, inv[torch.clamp(obs_pt_g, min=0).to(torch.int64)], -1)
 
     no = min(n_obs, F)
-    kf_xy_c, kf_sig_c, obs_pt_c = _compact_obs(
-        m.kf_xy[rowc], sigma2_lv[m.kf_level[rowc].to(torch.int64)], obs_pt, no)
+    kf_ur = torch.where(rmask[:, None], m.kf_ur[rowc], -1.0) if depth else None
+    kf_xy_c, kf_sig_c, obs_pt_c, kf_ur_c = _compact_obs(
+        m.kf_xy[rowc], sigma2_lv[m.kf_level[rowc].to(torch.int64)], obs_pt, no, kf_ur)
     ba_in = (m.kf_pose[rowc], fixed, kf_xy_c, kf_sig_c, obs_pt_c, m.pt_pos[sel], sel_ok)
-    return ba_in, (rows, rmask, fixed, inv, sel_flag, obs_pt, obs_pt_g, no)
+    return ba_in, kf_ur_c, (rows, rmask, fixed, inv, sel_flag, obs_pt, obs_pt_g, no)
 
 
 def _ba_writeback(m: map_state.MapState, ctx, new_poses, new_pts, inliers_c):
@@ -406,13 +414,13 @@ def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int =
     LocalBundleAdjustment` window): local = center + covisible keyframes;
     points = those observed by local keyframes (the best `n_pts` by
     `pt_found`); fixed = other observers of those points + keyframe 0, and
-    at least two pinned cameras for a monocular window (the Sim(3) gauge).
-    Returns (map, chi2)."""
-    if bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
-    ba_in, ctx = _ba_window(m, center, n_local, n_fixed, n_pts, n_levels, scale_factor, n_obs)
-    new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust(*ba_in, K, iters=iters,
-                                                           use_kernel=use_kernel)
+    at least two pinned cameras for a monocular window (the Sim(3) gauge),
+    one for a depth map's. `bf` (fx * baseline) adds the stereo rows of the
+    keyframes' right-u channel. Returns (map, chi2)."""
+    ba_in, kf_ur, ctx = _ba_window(m, center, n_local, n_fixed, n_pts, n_levels, scale_factor,
+                                   n_obs, depth=bf is not None)
+    new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust(*ba_in, K, iters=iters, kf_ur=kf_ur,
+                                                           bf=bf, use_kernel=use_kernel)
     return _ba_writeback(m, ctx, new_poses, new_pts, inliers_c), chi2
 
 
@@ -426,16 +434,17 @@ def local_ba_batched(ms: map_state.MapState, centers, K, n_local: int = 16, n_fi
     `local_ba`'s fixed shapes, then ONE `ba.bundle_adjust_batched` solves
     all B windows, with one K3 and one K2 launch per LM step, LM damping
     and acceptance per map. Returns (ms', chi2 [B]), every map updated as
-    `local_ba` alone would update it."""
+    `local_ba` alone would update it. Monocular maps only: the JAX mesh
+    step that batches agents is monocular, and `bf` raises."""
     if bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
+        raise NotImplementedError("the batched BA is monocular; a depth map's BA is local_ba")
     maps = map_state.unstack_maps(ms, ms.kf_pose.shape[0])
     wins = [_ba_window(m, c, n_local, n_fixed, n_pts, n_levels, scale_factor, n_obs)
             for m, c in zip(maps, centers)]
     ba_in = [torch.stack(xs) for xs in zip(*(w[0] for w in wins))]
     new_poses, new_pts, chi2, inliers_c = ba.bundle_adjust_batched(*ba_in, K, iters=iters,
                                                                    use_kernel=use_kernel)
-    out = [_ba_writeback(m, w[1], new_poses[b], new_pts[b], inliers_c[b])
+    out = [_ba_writeback(m, w[2], new_poses[b], new_pts[b], inliers_c[b])
            for b, (m, w) in enumerate(zip(maps, wins))]
     return map_state.stack_maps(out), chi2
 
@@ -447,9 +456,8 @@ def global_ba(m: map_state.MapState, K, n_kf_max: int | None = None, n_pts: int 
     `ba.bundle_adjust_pcg`. The full keyframe and point capacity by default;
     `n_kf_max`/`n_pts` cap the problem to a slot prefix and the `n_pts` best
     observed points. Keyframe 0 is the gauge, and a monocular map pins the
-    second-oldest valid keyframe too (the Sim(3) scale). Returns (map, chi2)."""
-    if bf is not None:
-        raise NotImplementedError("stereo BA rows are not ported")
+    second-oldest valid keyframe too (the Sim(3) scale); `bf` adds the
+    disparity rows of a depth map, which fix its scale. Returns (map, chi2)."""
     dev = m.pt_pos.device
     i32 = torch.int32
     scales = _level_scales(n_levels, scale_factor, dev)
@@ -461,8 +469,9 @@ def global_ba(m: map_state.MapState, K, n_kf_max: int | None = None, n_pts: int 
     rows = torch.arange(n_kf_max, dtype=i32, device=dev)
     rmask = m.kf_valid[:n_kf_max]
     fixed = (rows == 0) | ~rmask
-    ids = torch.where(rmask & (rows != 0), rows, 2 ** 30)
-    fixed = fixed | (rows == torch.min(ids))
+    if bf is None:
+        ids = torch.where(rmask & (rows != 0), rows, 2 ** 30)
+        fixed = fixed | (rows == torch.min(ids))
 
     obs = m.kf_obs[:n_kf_max]
     if n_pts >= P:
@@ -481,10 +490,11 @@ def global_ba(m: map_state.MapState, K, n_kf_max: int | None = None, n_pts: int 
         obs_pt = torch.where(obs_pt_g >= 0, inv[torch.clamp(obs_pt_g, min=0).to(torch.int64)], -1)
         pts0, pt_opt = m.pt_pos[sel], sel_ok
 
+    kf_ur = None if bf is None else torch.where(rmask[:, None], m.kf_ur[:n_kf_max], -1.0)
     new_poses, new_pts, chi2, _ = ba.bundle_adjust_pcg(
         m.kf_pose[:n_kf_max], fixed, m.kf_xy[:n_kf_max],
         sigma2_lv[m.kf_level[:n_kf_max].to(torch.int64)], obs_pt.to(i32), pts0, pt_opt, K,
-        lm_iters=iters)
+        kf_ur=kf_ur, bf=bf, lm_iters=iters)
     upd = rmask & ~fixed
     kf_pose = m.kf_pose.clone()
     kf_pose[:n_kf_max] = torch.where(upd[:, None], new_poses, m.kf_pose[:n_kf_max])
@@ -564,7 +574,7 @@ def _mapper_chain(m, c, K, *, n_neighbors: int, n_levels: int, scale_factor: flo
 class LocalMapper:
     """Host side of the mapping pipeline, the reference's LocalMapping
     thread as synchronous calls: the initial map's BA, then the
-    per-keyframe chain. Visual only; the inertial stages are ROADMAP item 13."""
+    per-keyframe chain. Visual only; the inertial stages are ROADMAP item 13b."""
 
     def __init__(self, n_neighbors=5, ba_local=16, ba_fixed=16, ba_pts=4096,
                  ba_iters=8, run_ba_every=1):
@@ -577,17 +587,20 @@ class LocalMapper:
         self._kf_count = 0
 
     def initialize_imu(self, tracker):
-        raise NotImplementedError("IMU initialization is not ported yet (ROADMAP item 13)")
+        raise NotImplementedError("IMU initialization is not ported yet (ROADMAP item 13b)")
 
     def refine_scale(self, tracker):
-        raise NotImplementedError("inertial scale refinement is not ported yet (ROADMAP item 13)")
+        raise NotImplementedError("inertial scale refinement is not ported yet (ROADMAP item 13b)")
 
     def _vi_local_ba(self, tracker, center_slot, window=None):
-        raise NotImplementedError("visual-inertial BA is not ported yet (ROADMAP item 13)")
+        raise NotImplementedError("visual-inertial BA is not ported yet (ROADMAP item 13b)")
 
     def on_initial_map(self, tracker):
         """BA of the two-keyframe initial map (4 local, 4 fixed rows, 16
-        iterations), then the point statistics."""
+        iterations), then the point statistics. A depth sensor's initial map
+        is one keyframe at identity with metric points: nothing to adjust."""
+        if tracker.n_kf_host < 2:
+            return
         fc = tracker.config.frontend
         m, _ = local_ba(tracker.map, 1, tracker.K, n_local=4, n_fixed=4, n_pts=self.ba_pts,
                         iters=16, n_levels=fc.n_levels, scale_factor=fc.scale_factor,
@@ -601,10 +614,11 @@ class LocalMapper:
         self._kf_count += 1
         run_ba = self._kf_count % self.run_ba_every == 0
         c = torch.as_tensor(slot, dtype=torch.int32, device=tracker.K.device)
+        bf = tracker.fx * tracker.config.baseline if tracker.config.depth_sensor else None
         m = _mapper_step(tracker.map, c, tracker.K, n_neighbors=self.n_neighbors,
                          n_levels=fc.n_levels, scale_factor=fc.scale_factor, run_ba=run_ba,
                          ba_local=self.ba_local, ba_fixed=self.ba_fixed, ba_pts=self.ba_pts,
-                         ba_iters=self.ba_iters, use_kernel=fc.use_kernel)
+                         ba_iters=self.ba_iters, bf=bf, use_kernel=fc.use_kernel)
         tracker.map = m
         tracker.last_pose = m.kf_pose[slot]
         # uuids of the new points are assigned lazily (`tracker.flush_meta`)

@@ -1,11 +1,17 @@
-"""System facade: the `ORB_SLAM3::System` API for single-agent monocular use.
+"""System facade: the `ORB_SLAM3::System` API for single-agent use.
 
-Port of `dvm_slam_tpu/models/system.py` for `sensor="monocular"`:
+Port of `dvm_slam_tpu/models/system.py` for the visual sensors:
 
-    sys = System(settings, device="cuda")
+    sys = System(settings, device="cuda")                 # monocular
     for ts, img in sequence:
         T_cw = sys.track_monocular(img, ts)
     sys.save_trajectory_tum("traj.txt")
+
+`System(settings, sensor="stereo").track_stereo(img_l, img_r, ts)` takes a
+rectified pair and `System(settings, sensor="rgbd").track_rgbd(img, depth,
+ts)` an image and its registered depth in sensor units (scaled by
+`camera.depth_map_factor`); both need `camera.baseline` (the reference's
+`Camera.bf` / fx). A KB8 fisheye comes through `camera.model: kb8`.
 
 With `vocabulary_file` (e.g. `data/voc_default.npz`) the tracker gets
 relocalization and the multi-map atlas: a new map on persistent LOST and the
@@ -14,11 +20,12 @@ merge-back into a stored map on a later keyframe.
 `serialize_map` gives the map packet of the multi-agent wire, and
 `save_atlas`/`load_atlas` a checkpoint in the JAX package's format. Paths
 that need modules not ported yet raise `NotImplementedError` naming their
-ROADMAP item: the other sensor modes (13) and the viewer (14).
+ROADMAP item: the inertial sensor modes (13b) and the viewer (14).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import Optional
 
@@ -51,9 +58,9 @@ def _not_ported(what: str, items: str):
 
 
 class System:
-    """One monocular SLAM agent on `device`. `use_kernel` picks the
-    hand-written kernels (None: on CUDA tensors; False: the plain
-    versions), as `FrontendConfig.use_kernel` does."""
+    """One SLAM agent on `device` with a monocular, stereo or RGB-D camera.
+    `use_kernel` picks the hand-written kernels (None: on CUDA tensors;
+    False: the plain versions), as `FrontendConfig.use_kernel` does."""
 
     def __init__(self, settings: "config_mod.SystemSettings | str",
                  sensor: str = MONOCULAR, agent_id: int = 0,
@@ -61,8 +68,8 @@ class System:
                  device="cuda", use_kernel: Optional[bool] = None):
         if sensor not in _SENSORS:
             raise NotImplementedError(f"unknown sensor mode {sensor!r}; supported: {_SENSORS}")
-        if sensor != MONOCULAR:
-            raise _not_ported(f"sensor mode {sensor!r}", "13")
+        if sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
+            raise _not_ported(f"sensor mode {sensor!r}", "13b")
         if use_viewer:
             raise _not_ported("the viewer", "14")
         if isinstance(settings, str):
@@ -71,27 +78,35 @@ class System:
         self.sensor = sensor
         self.agent_id = agent_id
         self.device = torch.device(device)
+        cfg = settings.tracker_config(use_kernel)
+        if sensor in (STEREO, RGBD):
+            if settings.camera.baseline <= 0.0:
+                raise ValueError("a stereo or RGB-D sensor needs camera.baseline (or the "
+                                 "reference's Camera.bf) in the settings")
+            cfg = dataclasses.replace(cfg, sensor=sensor)
         self.mapper = local_mapping.LocalMapper()
         self.tracker = trk.MonocularTracker(
-            settings.tracker_config(use_kernel), settings.camera.K(),
+            cfg, settings.camera.K(),
             np.asarray(settings.camera.dist, np.float32), local_mapper=self.mapper,
             rng_seed=agent_id, device=self.device)
         self.tracker.meta.agent_id = agent_id
         self.voc = vocabulary.load(vocabulary_file) if vocabulary_file else None
         if self.voc is not None:
             # relocalization and the multi-submap atlas (a new map on
-            # persistent LOST, merge-back); a monocular map's scale is free
+            # persistent LOST, merge-back); a monocular map's scale is free,
+            # a depth sensor's is fixed
             fc = settings.frontend_config(use_kernel)
             self.tracker.relocalizer = relocalization.RelocalizationService(
                 self.voc, settings.camera.K(), fc.sigma2, kf_cap=settings.kf_capacity,
                 device=self.device)
             self.tracker.atlas = atlas_mod.Atlas(self.voc, settings.camera.K(), fc,
-                                                 agent_id=agent_id, fix_scale=False,
+                                                 agent_id=agent_id, fix_scale=cfg.depth_sensor,
                                                  device=self.device)
         if settings.load_atlas_from_file:
             self.load_atlas(settings.load_atlas_from_file)
         # the tracking/mapping overlap: the tracker enters the autonomous
-        # lane by itself once initialization is OK
+        # lane by itself once initialization is OK (monocular frames); stereo
+        # and RGB-D frames take the pipelined lane, async_depth frames deep
         if settings.autonomous:
             self.tracker.auto_mode = True
             self.tracker.auto_batch = int(settings.auto_batch)
@@ -101,8 +116,27 @@ class System:
 
     def track_monocular(self, img, timestamp: float):
         """`System::TrackMonocular`: grayscale (or RGB, averaged) image in,
-        world->camera SE3 [7] out (None before initialization). A resize to
-        the settings' output size is the reference's linear resize."""
+        world->camera SE3 [7] out (None before initialization)."""
+        return self.tracker.process_image(self._prep(img), timestamp)
+
+    def track_stereo(self, img_left, img_right, timestamp: float):
+        """`System::TrackStereo`: a rectified grayscale (or RGB) pair in,
+        world->camera SE3 [7] out."""
+        return self.tracker.process_stereo_pair(self._prep(img_left), self._prep(img_right),
+                                                timestamp)
+
+    def track_rgbd(self, img, depth_map, timestamp: float):
+        """`System::TrackRGBD`: grayscale (or RGB) image and the registered
+        depth in sensor units, scaled by `camera.depth_map_factor`. As in
+        the reference, a resize applies to the image only."""
+        depth = torch.as_tensor(np.asarray(depth_map, np.float32)).to(self.device)
+        return self.tracker.process_rgbd(self._prep(img),
+                                         depth * self.settings.camera.depth_map_factor,
+                                         timestamp)
+
+    def _prep(self, img):
+        """The image on the device as f32 gray; a resize to the settings'
+        output size is the reference's linear resize."""
         img = torch.as_tensor(np.asarray(img) if not isinstance(img, torch.Tensor) else img)
         img = img.to(self.device)
         if img.ndim == 3:
@@ -111,7 +145,7 @@ class System:
         if ((c.new_width, c.new_height) != (None, None)
                 and tuple(img.shape) != (c.out_height, c.out_width)):
             img = pyramid.resize(img.to(torch.float32), c.out_height, c.out_width)
-        return self.tracker.process_image(img.to(torch.float32), timestamp)
+        return img.to(torch.float32)
 
     def get_tracking_state(self):
         return self.tracker.state

@@ -72,7 +72,7 @@ SCALE_HYPOTHESES = 500             # ransacPointSetAlignment's iterations
 _BOW_NZ = 1024
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
 
@@ -522,7 +522,7 @@ class SlamAgent:
         frame change to the current group (`:920-999`)."""
         if self.tracker.inertial:
             raise _not_ported("the inertial merge's joint visual-inertial BA (MergeInertialBA)",
-                              13)
+                              "13b")
         fc = self.config.frontend
         K = self.tracker.K
         t_merge0 = time.perf_counter()

@@ -1,9 +1,11 @@
-"""Pose-only optimization (motion-only bundle adjustment), monocular.
+"""Pose-only optimization (motion-only bundle adjustment).
 
-Port of `dvm_slam_tpu/tracking/pose_opt.py::pose_optimization` (stereo rows
-wait for the sensor-mode slice): 4 outer rounds x 10 Gauss-Newton
-iterations, Huber kernel at delta = sqrt(5.991), chi2(2 dof) = 5.991 outlier
-re-classification between rounds, outliers excluded from the next round.
+Port of `dvm_slam_tpu/tracking/pose_opt.py::pose_optimization`: 4 outer
+rounds x 10 Gauss-Newton iterations, Huber kernel at delta = sqrt(5.991),
+chi2(2 dof) = 5.991 outlier re-classification between rounds, outliers
+excluded from the next round. A stereo or RGB-D observation (`ur` >= 0)
+adds a third residual row, ur - (u - bf/z), and is gated at chi2(3 dof) =
+7.815 with the Huber delta sqrt(7.815).
 The damping decays x0.3 per iteration, as in the reference: a constant
 damping leaves the weak forward-translation direction unconverged every
 round, and the motion model compounds that undershoot.
@@ -27,7 +29,9 @@ import torch
 from ..geometry import lie
 
 CHI2_MONO = 5.991
+CHI2_STEREO = 7.815  # chi2(3 dof)
 HUBER_DELTA = math.sqrt(CHI2_MONO)
+HUBER_DELTA_STEREO = math.sqrt(CHI2_STEREO)
 
 
 def _residuals_and_planes(T, pts, uv, K):
@@ -50,31 +54,65 @@ def _residuals_and_planes(T, pts, uv, K):
     return r, z, Ju, Jv
 
 
+def _stereo_residual_and_plane(T, pts, ur, bf, K):
+    """The third row of a stereo observation: r_ur = ur - (u_pred - bf/z)
+    and its Jacobian plane [6,N], the u row's pattern plus the bf/z^2 term
+    of dz."""
+    pc = lie.quat_rotate(lie.se3_q(T)[None], pts) + lie.se3_t(T)[None]
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    inv_z = 1.0 / zs
+    r_ur = ur - (K[0] * x * inv_z + K[2] - bf * inv_z)
+    a00 = K[0] * inv_z
+    a02 = -K[0] * x * inv_z * inv_z
+    zero = torch.zeros_like(x)
+    c = bf * inv_z * inv_z
+    Ju = torch.stack([-a00, zero, -a02, -a02 * y, -a00 * z + a02 * x, a00 * y])
+    Jz = torch.stack([zero, zero, -c, -c * y, c * x, zero])
+    return r_ur, Ju + Jz
+
+
 def pose_optimization(T_init, pts, uv, sigma2, valid, K,
-                      rounds: int = 4, iters: int = 10, damping: float = 1e-3):
+                      rounds: int = 4, iters: int = 10, damping: float = 1e-3,
+                      ur=None, bf=None):
     """Optimize a world->camera pose against fixed 3D points.
 
     T_init [7]; pts [N,3] world points; uv [N,2] observed undistorted
-    pixels; sigma2 [N] level variance (px^2); valid [N] bool; K [4].
-    Returns (T [7], inliers [N] bool, chi2 [N])."""
+    pixels; sigma2 [N] level variance (px^2); valid [N] bool; K [4]; ur
+    optional [N] right-u observations (-1: a monocular row) with bf = fx *
+    baseline. Returns (T [7], inliers [N] bool, chi2 [N])."""
     dt = T_init.dtype
     info = 1.0 / torch.clamp(sigma2, min=1e-12)
     eye = torch.eye(6, dtype=dt, device=T_init.device)
+    stereo = None if ur is None else (ur >= 0.0) & valid
+    chi2_th = CHI2_MONO if ur is None else torch.where(stereo, CHI2_STEREO, CHI2_MONO)
+    delta_h = HUBER_DELTA if ur is None else torch.where(stereo, HUBER_DELTA_STEREO, HUBER_DELTA)
 
     def chi2_of(T):
         r, z, _, _ = _residuals_and_planes(T, pts, uv, K)
-        return torch.sum(r * r, dim=-1) * info, z
+        chi2 = torch.sum(r * r, dim=-1) * info
+        if ur is not None:
+            r_ur, _ = _stereo_residual_and_plane(T, pts, ur, bf, K)
+            chi2 = chi2 + torch.where(stereo, r_ur * r_ur * info, 0.0)
+        return chi2, z
 
     def gn_round(T, active):
         for i in range(iters):
             r, z, Ju, Jv = _residuals_and_planes(T, pts, uv, K)
             chi2 = torch.sum(r * r, dim=-1) * info
+            if ur is not None:
+                r_ur, Jur = _stereo_residual_and_plane(T, pts, ur, bf, K)
+                chi2 = chi2 + torch.where(stereo, r_ur * r_ur * info, 0.0)
             rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            w = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * active
+            w = info * torch.clamp(delta_h / rn, max=1.0) * active
             Juw = Ju * w
             Jvw = Jv * w
             H = Juw @ Ju.T + Jvw @ Jv.T
             b = Juw @ r[:, 0] + Jvw @ r[:, 1]
+            if ur is not None:
+                Jsw = Jur * (w * stereo)
+                H = H + Jsw @ Jur.T
+                b = b + Jsw @ r_ur
             H = H + (damping * 0.3 ** i) * eye * (1.0 + torch.trace(H) / 6.0)
             dx = torch.linalg.solve_ex(H, -b)[0]
             dx = torch.where(torch.all(torch.isfinite(dx)), dx, torch.zeros_like(dx))
@@ -86,8 +124,8 @@ def pose_optimization(T_init, pts, uv, sigma2, valid, K,
     for _ in range(rounds):
         T = gn_round(T, active)
         chi2, z = chi2_of(T)
-        active = (valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dt)
+        active = (valid & (chi2 <= chi2_th) & (z > 0)).to(dt)
 
     chi2, z = chi2_of(T)
-    inliers = valid & (chi2 <= CHI2_MONO) & (z > 0)
+    inliers = valid & (chi2 <= chi2_th) & (z > 0)
     return T, inliers, chi2

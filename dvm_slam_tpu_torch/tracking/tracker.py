@@ -5,10 +5,12 @@ and, for a new keyframe, the mapper chain with windowed BA.
 Port of `dvm_slam_tpu/tracking/tracker.py`: the device step
 (`project_points`, `track_frame`, `make_and_track`, `update_visibility`,
 `create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`) and
-the host state machine `MonocularTracker` for a monocular pinhole camera
-(two-view initialization, motion-model tracking, the keyframe decision, the
+the host state machine `MonocularTracker` for the visual sensors (a
+monocular pinhole or KB8 fisheye camera, a rectified stereo pair, an RGB-D
+camera): two-view or single-frame depth initialization, motion-model
+tracking with the stereo residual rows, the keyframe decision, the
 pipelined lane, the autonomous lane, relocalization and the multi-map
-atlas). Two helpers come from the
+atlas. Two helpers come from the
 reference's host code: `bootstrap_from_depth` (the map seeding of
 `_try_initialize_depth`) and `motion_model_step` (the pose chain of
 `autonomous_step`). `autonomous_step_batch` returns the reference's packed
@@ -29,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..frontend.extractor import Frame, FrontendConfig, make_frame
+from ..frontend.extractor import (Frame, FrontendConfig, make_frame, make_frame_rgbd,
+                                  make_frame_stereo)
 from ..geometry import cameras, lie, two_view
 from ..mapping import local_mapping, map_state
 from ..ops import matching
@@ -50,10 +53,10 @@ class TrackerConfig:
     min_track_inliers: int = 15   # lost below this
     kf_ref_ratio: float = 0.9
     kf_min_inliers: int = 15
-    camera_model: str = "pinhole"  # only "pinhole" is ported
-    sensor: str = "monocular"
-    baseline: float = 0.0
-    th_depth_ratio: float = 40.0
+    camera_model: str = "pinhole"  # "pinhole" | "kb8" (rectified keypoints)
+    sensor: str = "monocular"      # "monocular" | "stereo" | "rgbd"
+    baseline: float = 0.0          # stereo baseline / RGB-D virtual baseline, m
+    th_depth_ratio: float = 40.0   # close-point depth = ratio * baseline
     min_init_stereo_points: int = 200
 
     @property
@@ -63,6 +66,10 @@ class TrackerConfig:
     @property
     def depth_sensor(self):
         return self.sensor in ("stereo", "rgbd")
+
+    @property
+    def th_depth(self):
+        return self.th_depth_ratio * self.baseline
 
 
 class TrackResult(NamedTuple):
@@ -112,7 +119,9 @@ def _match_and_assign(m, uv, vis, level, radii, frame: Frame, max_dist, ratio):
 
 
 def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerConfig):
-    """Two-stage match + pose-only BA (monocular). Returns TrackResult.
+    """Two-stage match + pose-only BA, with the stereo rows when the frame
+    carries a right-u channel and the config a baseline. Returns
+    TrackResult.
 
     The reference's `lax.cond` retry (too few stage-1 matches -> a 4x wider
     window) is a Python `if` here: one host sync per frame."""
@@ -129,9 +138,11 @@ def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerC
     if int(torch.sum(ok1)) < 20:
         feat1, ok1 = _match_and_assign(m, uv, vis, level, radii1 * 4.0, frame,
                                        matching.TH_HIGH, 0.9)
+    bf = K[0] * config.baseline if frame.ur is not None and config.baseline > 0.0 else None
     f1 = torch.clamp(feat1, min=0)
+    ur1 = None if bf is None else torch.where(ok1, frame.ur[f1], -1.0)
     T1, inl1, _ = pose_opt.pose_optimization(
-        T_pred, m.pt_pos, frame.xy[f1], sigma2[level_of(f1)], ok1, K)
+        T_pred, m.pt_pos, frame.xy[f1], sigma2[level_of(f1)], ok1, K, ur=ur1, bf=bf)
     n1 = torch.sum(inl1, dtype=torch.int32)
 
     # ---- stage 2: tight search at the refined pose (TrackLocalMap)
@@ -143,8 +154,9 @@ def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerC
     feat = torch.where(ok2, feat2, torch.where(inl1, feat1, -1))
     okc = matching.dedupe_matches(feat, feat >= 0, frame.capacity)
     fc2 = torch.clamp(feat, min=0)
+    ur2 = None if bf is None else torch.where(okc, frame.ur[fc2], -1.0)
     T2, inl2, _ = pose_opt.pose_optimization(
-        T1, m.pt_pos, frame.xy[fc2], sigma2[level_of(fc2)], okc, K)
+        T1, m.pt_pos, frame.xy[fc2], sigma2[level_of(fc2)], okc, K, ur=ur2, bf=bf)
     n2 = torch.sum(inl2, dtype=torch.int32)
 
     # invert point->feature into feature->point; dropped points all land in
@@ -207,9 +219,7 @@ def make_and_track(img, m: map_state.MapState, T_pred, K, dist, config: TrackerC
     """The per-frame step: ORB extraction + two-stage tracking. Returns
     (frame, result, pt_visible, pt_found), the visibility counters advanced
     only on a good track (>= min_track_inliers)."""
-    if config.camera_model != "pinhole":
-        raise NotImplementedError(f"camera model {config.camera_model!r} is not ported")
-    frame = make_frame(img, K, dist, config.frontend)
+    frame = make_frame(img, K, dist, config.frontend, camera_model=config.camera_model)
     res = track_frame(m, frame, T_pred, K, config)
     good = res.n_inliers >= config.min_track_inliers
     pt_visible = m.pt_visible + (res.visible & good).to(torch.int32)
@@ -254,15 +264,13 @@ def autonomous_step(img, m: map_state.MapState, st: AutoState, K, dist,
     (for a new keyframe) keyframe insertion and the whole mapper chain.
 
     mapper_cfg: (n_neighbors, n_levels, scale_factor, ba_local, ba_fixed,
-    ba_pts, ba_iters, run_ba_every), as in the reference. Returns (map,
-    state, AutoFlags)."""
-    if config.camera_model != "pinhole":
-        raise NotImplementedError(f"camera model {config.camera_model!r} is not ported")
-    if config.depth_sensor:
-        raise NotImplementedError("stereo / RGB-D keyframes need stereo BA rows, not ported")
+    ba_pts, ba_iters, run_ba_every), as in the reference. With a depth
+    sensor the keyframe ratio is 0.75, the keyframe keeps the frame's right
+    u and the chain's BA takes the stereo rows. Returns (map, state,
+    AutoFlags)."""
     (n_neighbors, n_levels, scale_factor,
      ba_local, ba_fixed, ba_pts, ba_iters, run_ba_every) = mapper_cfg
-    frame = make_frame(img, K, dist, config.frontend)
+    frame = make_frame(img, K, dist, config.frontend, camera_model=config.camera_model)
     res = track_frame(m, frame, lie.se3_mul(st.velocity, st.T_cw), K, config)
     good = res.n_inliers >= config.min_track_inliers
     T2, vel2 = motion_model_step(st.T_cw, res, config)
@@ -273,7 +281,8 @@ def autonomous_step(img, m: map_state.MapState, st: AutoState, K, dist,
     fsk = torch.where(good, st.frames_since_kf + 1, st.frames_since_kf)
 
     # the keyframe decision, in f32 as the reference computes it
-    thr = torch.clamp(config.kf_ref_ratio * st.ref_tracked.to(torch.float32), min=1.0)
+    ratio = 0.75 if config.depth_sensor else config.kf_ref_ratio
+    thr = torch.clamp(ratio * st.ref_tracked.to(torch.float32), min=1.0)
     need_kf = (
         good
         & ((fsk >= config.max_frames_between_kf) | (res.n_inliers < thr.to(torch.int32)))
@@ -283,12 +292,14 @@ def autonomous_step(img, m: map_state.MapState, st: AutoState, K, dist,
     # the reference's lax.cond is a Python `if`: one host sync per frame
     if bool(need_kf):
         m, slot = map_state.add_keyframe(m, res.T_cw, frame.xy, frame.level, frame.angle,
-                                         frame.desc, frame.valid, res.obs)
+                                         frame.desc, frame.valid, res.obs,
+                                         ur=frame.ur if config.depth_sensor else None)
         run_ba = run_ba_every == 1 or (int(st.kf_count) + 1) % run_ba_every == 0
         m = local_mapping._mapper_chain(
             m, slot, K, n_neighbors=n_neighbors, n_levels=n_levels,
             scale_factor=scale_factor, run_ba_traced=run_ba, ba_local=ba_local,
             ba_fixed=ba_fixed, ba_pts=ba_pts, ba_iters=ba_iters,
+            bf=K[0] * config.baseline if config.depth_sensor else None,
             use_kernel=config.frontend.use_kernel)
     st2 = AutoState(
         T_cw=T2, velocity=vel2,
@@ -357,19 +368,23 @@ class _HostCopy:
         return self.host.numpy()
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
 
 
 class MonocularTracker:
     """Host state machine around the tracking step (`Tracking::Track`):
-    monocular two-view initialization, motion-model prediction, lost
+    monocular two-view initialization (a stereo or RGB-D frame initializes
+    alone, `Tracking::StereoInitialization`), motion-model prediction, lost
     handling and the keyframe decision, with two overlapped lanes: the
     pipelined lane (decisions `async_depth` frames behind the dispatch) and
     the autonomous lane (`autonomous_step`, keyframes and mapping inside the
-    step, bookkeeping retired from outcome rows).
+    step, bookkeeping retired from outcome rows). Stereo and RGB-D frames
+    come through `process_stereo_pair` / `process_rgbd` and take the host or
+    the pipelined lane, as in the reference.
 
-    Monocular pinhole only. Every tensor lives on `device`. The two RANSAC
+    Visual sensors only (`config.sensor` monocular, stereo or rgbd; a
+    pinhole or a KB8 camera). Every tensor lives on `device`. The two RANSAC
     samplers draw from a `torch.Generator` on the CPU seeded with `rng_seed`
     (`_ransac_noise`), so the card and the CPU see the same draws; keyframe
     and point uuids come from a numpy generator with the same seed.
@@ -377,23 +392,26 @@ class MonocularTracker:
     multi-map atlas (`atlas`, a `mapping.atlas.Atlas`) stay None unless the
     caller sets them, as `System` does when given a vocabulary.
 
-    One repair beyond the reference: the pipelined retire stashes the map in
-    the atlas on persistent LOST, as `_track_resolve` does. The reference's
-    visual pipelined retire lacks it, so its `System`, whose lost frames
-    after the autonomous hand-back all take the pipelined lane, never starts
-    a new map."""
+    Two repairs beyond the reference, both in the pipelined retire. It
+    stashes the map in the atlas on persistent LOST, as `_track_resolve`
+    does: the reference's visual pipelined retire lacks it, so its
+    `System`, whose lost frames after the autonomous hand-back all take the
+    pipelined lane, never starts a new map. And a keyframe made there leaves
+    the prediction chain's head where it was: the reference's mapper sets
+    it to the keyframe's pose, async_depth frames back, and its stereo and
+    RGB-D `System`, whose frames all take this lane, loses track at the
+    first keyframe after the initial one."""
 
     def __init__(self, config: TrackerConfig, K, dist, local_mapper=None, rng_seed=0,
                  relocalizer=None, inertial=False, imu_calib=None, T_cb=None,
                  device="cuda"):
-        if inertial or config.sensor != "monocular":
-            raise _not_ported(f"the {'inertial' if inertial else config.sensor} tracker", 13)
-        if config.camera_model != "pinhole":
-            raise _not_ported(f"camera model {config.camera_model!r}", 13)
+        if inertial:
+            raise _not_ported("the inertial tracker", "13b")
         self.device = torch.device(device)
         self.config = config
         self.inertial = False    # the visual tracker only (the constructor refuses IMU)
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+        self.fx = float(np.asarray(K, np.float32)[0])   # for bf = fx * baseline, without a sync
         self.dist = torch.as_tensor(np.asarray(dist, np.float32), device=self.device)
         self._last_good_ts = None
         self.map = map_state.create(config.kf_cap, config.pt_cap, config.frontend.capacity,
@@ -472,7 +490,8 @@ class MonocularTracker:
         when lost). The image is uploaded in the caller's dtype."""
         img = torch.as_tensor(img).to(self.device)
         if self.state == NOT_INITIALIZED:
-            frame = make_frame(img, self.K, self.dist, self.config.frontend)
+            frame = make_frame(img, self.K, self.dist, self.config.frontend,
+                               camera_model=self.config.camera_model)
             return self.process_frame(frame, timestamp)
         self.n_frames += 1
         self._cur_ts = timestamp
@@ -483,7 +502,8 @@ class MonocularTracker:
         if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
             # relocalize first: the motion model is stale after a loss. The
             # frame is extracted once; on failure it is tracked as it is
-            frame = make_frame(img, self.K, self.dist, self.config.frontend)
+            frame = make_frame(img, self.K, self.dist, self.config.frontend,
+                               camera_model=self.config.camera_model)
             pose = self._try_relocalize(frame, timestamp)
             if pose is None:
                 T_pred, v_pred = self._predict_pose()
@@ -511,7 +531,10 @@ class MonocularTracker:
         self.n_frames += 1
         self._cur_ts = timestamp
         if self.state == NOT_INITIALIZED:
-            pose = self._try_initialize(frame)
+            if self.config.depth_sensor and frame.depth is not None:
+                pose = self._try_initialize_depth(frame)
+            else:
+                pose = self._try_initialize(frame)
         elif self.async_depth > 0:
             pose = self._track_pipelined(frame, timestamp)
         else:
@@ -522,13 +545,25 @@ class MonocularTracker:
         return pose
 
     def process_stereo_pair(self, img_l, img_r, timestamp: float):
-        raise _not_ported("stereo tracking", 13)
+        """`System::TrackStereo`: a rectified grayscale pair in, the pose
+        out."""
+        frame = make_frame_stereo(self._upload(img_l), self._upload(img_r), self.K, self.dist,
+                                  self.config.frontend, self.config.baseline)
+        return self.process_frame(frame, timestamp)
 
     def process_rgbd(self, img, depth_map, timestamp: float):
-        raise _not_ported("RGB-D tracking", 13)
+        """`System::TrackRGBD`: grayscale and the registered depth in meters
+        (scale the sensor's units first, as `System.track_rgbd` does)."""
+        bf = float(np.float32(self.fx * self.config.baseline))
+        frame = make_frame_rgbd(self._upload(img), self._upload(depth_map), self.K, self.dist,
+                                self.config.frontend, bf)
+        return self.process_frame(frame, timestamp)
+
+    def _upload(self, img):
+        return torch.as_tensor(img).to(self.device, torch.float32)
 
     def grab_imu(self, acc, gyro, dts):
-        raise _not_ported("inertial tracking", 13)
+        raise _not_ported("inertial tracking", "13b")
 
     # -- pipelined tracking (decisions run async_depth frames late) ---------
 
@@ -569,7 +604,14 @@ class MonocularTracker:
         self.frames_since_kf += 1
         if self._need_new_keyframe(n_inl):
             self._cur_ts = ts   # stamp the retired frame, not the newest one
+            head, epoch = self.last_pose, self.map_epoch
             self._create_keyframe(frame, res)
+            # the mapper leaves last_pose at the keyframe's adjusted pose,
+            # which is async_depth frames behind the chain head: predicting
+            # from it would lose the next frame (ROADMAP fault v). Keep the
+            # head unless a merge-back re-based the map
+            if self.map_epoch == epoch:
+                self.last_pose = head
 
     def flush_pipeline(self):
         """Retire every in-flight frame (sequence end, before map export)."""
@@ -755,6 +797,31 @@ class MonocularTracker:
                 self.local_mapper._kf_count += 1
 
     # -- initialization -----------------------------------------------------
+
+    def _try_initialize_depth(self, frame: Frame):
+        """`Tracking::StereoInitialization`: one frame with enough keypoints
+        of known depth seeds the map at true scale, keyframe 0 at identity
+        and one point per such keypoint."""
+        n_depth = int(((frame.depth > 0) & frame.valid).sum())
+        if n_depth < self.config.min_init_stereo_points:
+            return None
+        self.map, _ = bootstrap_from_depth(self.map, frame, self.K, self.config)
+        self.n_kf_host = 1
+        self.meta.kf_uuid[0] = self._new_uuids(1)[0]
+        self.meta.kf_creator[0] = self.meta.agent_id
+        self.meta_dirty = True
+        self.flush_meta()
+        self.last_pose = lie.se3_identity(device=self.device)
+        self.velocity = lie.se3_identity(device=self.device)
+        self.last_kf_slot = 0
+        self.kf_timestamps[0] = self._cur_ts
+        self.ref_kf_tracked = n_depth
+        self.frames_since_kf = 0
+        self.state = OK
+        self._last_good_ts = self._cur_ts
+        if self.local_mapper is not None:
+            self.local_mapper.on_initial_map(self)
+        return self.last_pose
 
     def _try_initialize(self, frame: Frame):
         n_valid = int(frame.valid.sum())
@@ -945,17 +1012,29 @@ class MonocularTracker:
 
     def _need_new_keyframe(self, n_inliers: int):
         """`Tracking::NeedNewKeyFrame` gates; thRefRatio 0.9 for a
-        monocular camera."""
+        monocular camera, 0.75 with a depth sensor."""
         if self.n_kf_host >= self.config.kf_cap - 1:
             return False
+        ratio = 0.75 if self.config.depth_sensor else self.config.kf_ref_ratio
         c1 = self.frames_since_kf >= self.config.max_frames_between_kf
-        c2 = n_inliers < self.config.kf_ref_ratio * max(self.ref_kf_tracked, 1)
+        c2 = n_inliers < ratio * max(self.ref_kf_tracked, 1)
         c3 = n_inliers > self.config.kf_min_inliers
         return (c1 or c2) and c3
 
     def _create_keyframe(self, frame: Frame, res: TrackResult):
+        """Insert the frame as a keyframe; with a depth sensor it keeps its
+        right-u channel, and its unmatched keypoints closer than th_depth
+        become new points (`Tracking::CreateNewKeyFrame`)."""
+        depth = self.config.depth_sensor
         m, _ = map_state.add_keyframe(self.map, res.T_cw, frame.xy, frame.level, frame.angle,
-                                      frame.desc, frame.valid, res.obs)
+                                      frame.desc, frame.valid, res.obs,
+                                      ur=frame.ur if depth else None)
+        if depth and frame.depth is not None:
+            fc = self.config.frontend
+            m, _ = create_points_from_depth(m, self.n_kf_host, frame, self.K,
+                                            float(np.float32(self.config.th_depth)),
+                                            fc.n_levels, fc.scale_factor)
+            self.meta_dirty = True
         self.map = m
         # keyframes are append-only: the slot is known on the host
         s = self.n_kf_host

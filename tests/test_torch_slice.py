@@ -978,6 +978,194 @@ def _reference_slice8_agents_main(seed_offset: int = 0):
     print(json.dumps(out), flush=True)
 
 
+# Slice 9: the depth sensors and the fisheye camera (chip_smoke.py phases
+# 24-26): the JAX package's System on the smoke's frames. Scenes and
+# settings are chip_smoke's (a module without JAX).
+
+def slice9_frames(phase: int, n_frames: int):
+    """Phase `phase`'s inputs rendered by the JAX world: per frame the
+    stereo pair (24), the image and its uint16 depth (25) or the fisheye
+    image (26), and the ground-truth poses."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    world = jsyn.PlaneWorld(seed=7, tex_size=cs.TEX_SIZE, **cs.WORLD9[phase])
+    poses = jsyn.smooth_trajectory(n_frames, **cs.TRAJ9[phase])
+    from dvm_slam_tpu.io import config as jcfg
+
+    cam = cs.settings9(phase, jcfg).camera
+    Kj = jnp.asarray(cam.K())
+    h, w = cam.out_height, cam.out_width
+    frames = []
+    for p in poses:
+        T = jnp.asarray(p)
+        if phase == 24:
+            il, ir = world.render_stereo(T, Kj, h, w, cam.baseline)
+            frames.append((np.array(il), np.array(ir)))
+        elif phase == 25:
+            frames.append((np.array(world.render(T, Kj, h, w)),
+                           cs.depth_to_sensor(world.render_depth(T, Kj, h, w))))
+        else:
+            Ks, S = cs.fisheye_source(cam.params())
+            field = cs.fisheye_field(cam.params(), h, w)
+            frames.append((cs.warp_to_fisheye(world.render(T, jnp.asarray(Ks), S, S), field),))
+    return frames, poses
+
+
+class pipelined_head_repair:
+    """The port's repair of the reference's pipelined retire (ROADMAP fault
+    v), patched into the JAX tracker while the context is open: a keyframe
+    made in `_retire_pipelined` leaves `last_pose`, the head of the
+    prediction chain, where it was, unless a merge re-based the map."""
+
+    def __enter__(self):
+        cls = jtrk.MonocularTracker
+        self.saved = (cls._retire_pipelined, cls._create_keyframe)
+        retire, create = self.saved
+
+        def retiring(t):
+            t._in_retire = True
+            try:
+                return retire(t)
+            finally:
+                t._in_retire = False
+
+        def creating(t, frame, res):
+            head, epoch = t.last_pose, t.map_epoch
+            create(t, frame, res)
+            if getattr(t, "_in_retire", False) and t.map_epoch == epoch:
+                t.last_pose = head
+
+        cls._retire_pipelined, cls._create_keyframe = retiring, creating
+        return self
+
+    def __exit__(self, *exc):
+        jtrk.MonocularTracker._retire_pipelined, jtrk.MonocularTracker._create_keyframe = self.saved
+
+
+def jax_sensor_run(phase: int, frames, poses, agent_id: int = 0, n_calls=None):
+    """Phase `phase`'s frames through the JAX package's System (stereo,
+    RGB-D or the KB8 monocular) from frame 0 as agent `agent_id`, stopping
+    after `n_calls` calls or, with `n_calls` None, running every frame and
+    saving the trajectory. The tracker carries the port's repair of fault
+    v. Returns a dict of the run's outcomes."""
+    import tempfile
+
+    import chip_smoke as cs
+    from dvm_slam_tpu.eval import metrics as jmetrics
+    from dvm_slam_tpu.geometry import two_view as jtv
+    from dvm_slam_tpu.io import config as jcfg
+    from dvm_slam_tpu.io import trajectory as jtraj
+    from dvm_slam_tpu.models import system as jsys
+
+    settings = cs.settings9(phase, jcfg)
+    if phase in cs.REF9_CAPS:
+        settings.kf_capacity, settings.pt_capacity = cs.REF9_CAPS[phase]
+    fps = settings.camera.fps
+    sensor = {24: "stereo", 25: "rgbd", 26: "monocular"}[phase]
+    log = {"stereo_matches": [], "close_points": [], "inits": []}
+    originals = (jex.make_frame_stereo, jex.make_frame_rgbd, jtrk.create_points_from_depth,
+                 jtv.reconstruct_two_views)
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            f = fn(*args, **kwargs)
+            log["stereo_matches"].append(int(np.asarray(f.ur >= 0).sum()))
+            return f
+        return wrapped
+
+    def close_points(m, slot, *args, **kwargs):
+        m2, n = originals[2](m, slot, *args, **kwargs)
+        log["close_points"].append((int(slot), int(n)))
+        return m2, n
+
+    def recording(*args, **kwargs):
+        res = originals[3](*args, **kwargs)
+        log["inits"].append(res)
+        return res
+
+    jex.make_frame_stereo, jex.make_frame_rgbd = counted(originals[0]), counted(originals[1])
+    jtrk.create_points_from_depth, jtv.reconstruct_two_views = close_points, recording
+    repair = pipelined_head_repair().__enter__()
+    try:
+        sysj = jsys.System(settings, sensor=sensor, agent_id=agent_id)
+        t = sysj.tracker
+        first_pose, init_pair = None, None
+        for i, fr in enumerate(frames[:n_calls]):
+            was = t.state
+            if phase == 24:
+                pose = sysj.track_stereo(fr[0], fr[1], i / fps)
+            elif phase == 25:
+                pose = sysj.track_rgbd(fr[0], fr[1], i / fps)
+            else:
+                pose = sysj.track_monocular(fr[0], i / fps)
+            if pose is not None and first_pose is None:
+                first_pose = i
+            if was == jtrk.NOT_INITIALIZED and t.state == jtrk.OK and init_pair is None:
+                init_pair = (int(round(t._init_ts * fps)) if phase == 26 else i, i)
+                if n_calls is not None:
+                    break
+        out = {"init_pair": init_pair, "first_pose": first_pose}
+        if phase == 26 and log["inits"]:
+            res = log["inits"][-1]
+            out["used_homography"] = bool(res.used_homography)
+            out["n_init_good"] = int(np.asarray(res.good).sum())
+        if n_calls is not None:
+            return out
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "traj_tum.txt")
+            sysj.save_trajectory_tum(path)
+            rows = jtraj.load_tum(path)
+    finally:
+        repair.__exit__()
+        (jex.make_frame_stereo, jex.make_frame_rgbd, jtrk.create_points_from_depth,
+         jtv.reconstruct_two_views) = originals
+    idx = [int(round(ts * fps)) for ts, _ in rows]
+    est = np.stack([T for _, T in rows])
+    gt = np.stack([np.asarray(poses[i]) for i in idx])
+    n_kf = int(t.map.n_kf)
+    ur = np.asarray(t.map.kf_ur[:n_kf])
+    obs = np.asarray(t.map.kf_obs[:n_kf])
+    out.update({
+        "final_state": t.state,
+        "tracked_frames": idx,
+        "kf_frames": sorted(int(round(v * fps)) for v in t.kf_timestamps.values()),
+        "n_kf": n_kf,
+        "n_valid_points": int(np.asarray(t.map.pt_valid).sum()),
+        "n_pt": int(t.map.n_pt),
+        "stereo_matches": log["stereo_matches"],
+        "close_points": log["close_points"],
+        "stereo_obs": int(((ur >= 0) & (obs >= 0)).sum()),
+        "ate_metric_m": cs.metric_ate(est, gt),
+        "ate_sim3_m": float(jmetrics.ate_rmse(est, gt)[0]),
+    })
+    return out
+
+
+def _reference_slice9_main(modes):
+    """The JAX package's CPU references of chip_smoke.py's phases 24-26: one
+    JSON line per mode (stereo, rgbd, kb8); for kb8 also the two-view init
+    under the draws of agents 1-5 (on the first 16 frames)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    for mode in modes:
+        phase = {"stereo": 24, "rgbd": 25, "kb8": 26}[mode]
+        t0 = time.time()
+        frames, poses = slice9_frames(phase, cs.N_FRAMES9)
+        out = jax_sensor_run(phase, frames, poses)
+        if phase == 26:
+            out["init_by_seed"] = {0: (out["init_pair"], out.get("used_homography"),
+                                       out.get("n_init_good"))}
+            for seed in range(1, 6):
+                r = jax_sensor_run(phase, frames, poses, agent_id=seed, n_calls=16)
+                out["init_by_seed"][seed] = (r["init_pair"], r.get("used_homography"),
+                                             r.get("n_init_good"))
+        out["mode"] = mode
+        out["seconds"] = time.time() - t0
+        print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if "--slice8" in sys.argv:  # the protocol runs on a 4-device CPU mesh
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -985,7 +1173,10 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if "--slice2" in sys.argv:
+    if "--slice9" in sys.argv:
+        modes = [m for m in ("stereo", "rgbd", "kb8") if m in sys.argv] or ["stereo", "rgbd", "kb8"]
+        _reference_slice9_main(modes)
+    elif "--slice2" in sys.argv:
         _reference_slice2_main()
     elif "--slice3" in sys.argv:
         _reference_slice3_main()

@@ -168,17 +168,27 @@ class TestSystemFacade:
         assert lost["rows"] == len(_read(runs["port"]["files"]["tum"])) + 1
 
     def test_unported_paths_raise(self, runs):
-        """The sensor modes and the viewer still raise; map serialization
-        and the checkpoint are ported (`tests/test_torch_multiagent.py`)."""
+        """The inertial sensor modes and the viewer still raise; a stereo
+        System without a baseline raises ValueError as the reference's does;
+        map serialization and the checkpoint are ported
+        (`tests/test_torch_multiagent.py`)."""
         st = runs["system"]
         from dvm_slam_tpu_torch.multiagent import codec as tcodec
         packet = tcodec.MapPacket.from_bytes(st.serialize_map())
         assert packet.n_kf == int(st.map.kf_valid.sum())
         settings = convert.system_settings_from_dict(dataclasses.asdict(_settings()))
-        for kwargs in (dict(sensor="stereo"), dict(use_viewer=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP item"):
-                tsys.System(settings, device="cpu", **kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        assert settings.camera.baseline == 0.0
+        for sensor in ("stereo", "rgbd"):
+            with pytest.raises(ValueError):
+                jsys.System(_settings(), sensor=sensor)
+            with pytest.raises(ValueError):
+                tsys.System(settings, sensor=sensor, device="cpu")
+        for sensor in ("imu-monocular", "imu-stereo", "imu-rgbd"):
+            with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
+                tsys.System(settings, sensor=sensor, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            tsys.System(settings, device="cpu", use_viewer=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
             settings.imu.calib()
 
 

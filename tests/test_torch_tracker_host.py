@@ -47,6 +47,7 @@ from dvm_slam_tpu_torch.mapping import local_mapping as tlm
 from dvm_slam_tpu_torch.tracking import tracker as ttrk
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_slice import pipelined_head_repair  # noqa: E402
 from test_torch_system import reference_noise  # noqa: E402
 
 torch.set_num_threads(2)
@@ -209,7 +210,9 @@ class TestOverlappedLanes:
         """From the same initialized state, both trackers run the rest of
         the frames through the pipelined lane (`async_depth` 2) or the
         autonomous lane (`auto_batch` 2, `async_depth` 2), then drain: the
-        same keyframes, trajectory timestamps and state; poses to 5e-3."""
+        same keyframes, trajectory timestamps and state; poses to 5e-3. The
+        JAX tracker carries the port's repair of the pipelined retire
+        (ROADMAP fault v: a keyframe made there keeps the chain head)."""
         cfg, tcfg, imgs, frames_j, frames_t = scene
         tj = jtrk.MonocularTracker(cfg, K, np.zeros(4, np.float32), local_mapper=_mapper(jlm))
         i = 0
@@ -227,15 +230,16 @@ class TestOverlappedLanes:
             if lane == "autonomous":
                 t.auto_batch = 2
                 assert t.enter_autonomous()
-        for k in range(i, len(imgs)):
-            if lane == "autonomous":
-                tj.process_image(imgs[k], k * 0.1)
-                tt.process_image(imgs[k], k * 0.1)
-            else:
-                tj.process_frame(frames_j[k], k * 0.1)
-                tt.process_frame(frames_t[k], k * 0.1)
-        tj.drain_auto()
-        tt.drain_auto()
+        with pipelined_head_repair():
+            for k in range(i, len(imgs)):
+                if lane == "autonomous":
+                    tj.process_image(imgs[k], k * 0.1)
+                    tt.process_image(imgs[k], k * 0.1)
+                else:
+                    tj.process_frame(frames_j[k], k * 0.1)
+                    tt.process_frame(frames_t[k], k * 0.1)
+            tj.drain_auto()
+            tt.drain_auto()
         assert tt.state == tj.state == "OK"
         assert tt.autonomous == tj.autonomous == (lane == "autonomous")
         assert tt.n_kf_host == tj.n_kf_host == int(tt.map.n_kf) == int(tj.map.n_kf)
