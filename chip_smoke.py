@@ -19,7 +19,9 @@ batch axis on the card (`parallel/multi_agent.py`: the batched BA, the
 per-frame agent step, the protocol round) and three agents merging through
 the native map codec, and slice 9, the other cameras through their `System`
 entry points: a stereo rig at KITTI width, an RGB-D camera at TUM width
-and a KB8 fisheye at TUM-VI width.
+and a KB8 fisheye at TUM-VI width, and slice 10, the inertial modes (a
+monocular camera, a stereo rig and an RGB-D camera, each with an IMU) and
+the inertial merge.
 Three hand-written kernels: K1 (fused ORB orientation + steered BRIEF,
 `csrc/orb_describe.cu`), K2 (BA adjoint scatter) and K3 (BA point gather,
 both `csrc/onehot_scatter.cu`). Phases, in order; any failure raises and the
@@ -39,8 +41,8 @@ run exits non-zero:
    error under 3x the JAX package's CPU reference run of the same frames;
    K1 launched once per extracted frame;
 5. slice 1 with `use_kernel=False`: identical inliers, poses to 1e-4;
-6. slice 1 timing after warm-up, one pass per path: make_and_track latency
-   per frame;
+6. slice 1 timing: make_and_track latency per frame over phase 4's
+   frames (phase 15 times the twin);
 7. K2/K3's build seconds and ptxas report;
 8. K2 and K3 at BA's shapes (G=30, F=512, P=4096) and windows L = 8, 20,
    32, on five adversarial index sets (random; a row's features all in one
@@ -58,10 +60,9 @@ run exits non-zero:
    frame;
 10. slice 2 with `use_kernel=False` for K1, K2 and K3: identical keyframe
     flags, inliers within 2 per frame, poses to 1e-3;
-11. timing after the warm-up of phases 9-10: `autonomous_step` ms per frame
-    with and without a keyframe (one pass with the kernels, then one plain;
-    four passes until slice 6 needed the time), `local_ba` ms per call on
-    the final map;
+11. timing: `autonomous_step` ms per frame with and without a keyframe
+    (phase 9's frames, each synchronised), `local_ba` ms per call on the
+    final map;
 12. slice 3 through the kernels, the port's normal entry point: every frame
     of the slice-2 scene from frame 0 through `System(...,
     vocabulary_file=VOCAB).track_monocular` (the vocabulary changes nothing
@@ -80,8 +81,8 @@ run exits non-zero:
     generator), so the same init frames, initial keyframe poses to 1e-4,
     identical keyframe frames and trajectory rows, poses to 1e-3;
 14. timing: `track_monocular` ms per call by kind (before init, the init
-    call, buffered, dispatched with and without a keyframe), one pass with
-    the kernels, then one plain (four until slice 6);
+    call, buffered, dispatched with and without a keyframe) over phase 12's
+    calls, each synchronised;
 15. the kernel table, at the System path's shapes (K1: one call for the 8
     levels of a 600x350 frame, and one for a KITTI stereo pair's 16 levels;
     K2/K3: L = 32, and L = 8 and 20 beside it): the
@@ -200,8 +201,9 @@ run exits non-zero:
     every frame, keyframes +-1, matches with depth per frame within
     STEREO_RTOL, the metric (SE3-aligned) ATE under 3x the reference's, the
     map inside the reference's capacities (`REF9_CAPS`), one K1 launch per
-    pair, K2/K3 once per LM step of every keyframe BA; the plain path with
-    the same keyframes, matches and rows, poses to 1e-3;
+    pair, K2/K3 once per LM step of every keyframe BA; the plain path over
+    the first N_PLAIN9 calls, held call by call: the same keyframes,
+    matches and rows, poses to 1e-3;
 25. RGB-D: `System(sensor="rgbd").track_rgbd` on N_FRAMES9 frames at
     `configs/tum.yaml`'s settings (640x480, 1000 features) with TUM1's
     Camera.bf and DepthMapFactor, the depth fed as uint16 sensor units, on
@@ -213,12 +215,46 @@ run exits non-zero:
     the reference's spread over agents 0-5, good points within 5%, a pose
     for every later frame, keyframes +-1, the ATE (Sim3) under 3x the
     reference's, K1-K3 launches as in phase 12; the plain path as in phase
-    13.
+    13, over the first N_PLAIN9 calls;
+27. IMU-monocular: `System(sensor="imu-monocular").track_monocular_inertial`
+    on N_FRAMES10[27] frames at `configs/euroc.yaml`'s settings without
+    distortion (752x480 resized to 600x350) with the IMU at 200 Hz
+    (`ImuSettings()`, ORB-SLAM3's EuRoC noise), black frames BLANK10[27]
+    after the IMU initializes; the pipelined VI lane retires a record as
+    soon as the next one is dispatched (fault s). Held to the JAX CPU
+    reference (`JAX_REF10`): the two-view init one that the reference makes
+    under the draws of agents 0-5 (fault o), and against the reference's
+    runs that initialized on that pair: the IMU initialized with the chain
+    within one keyframe, keyframes +-2, the path-length ratio against ground
+    truth after the IMU-init call within 3x their distance from 1 (or 1%);
+    the ratio in RATIO_BOUNDS, a pose for every black frame, final state
+    OK, at least 15 frames after the span, every chain keyframe's
+    preintegration dT within 1e-3 s of the IMU samples of its frames (the
+    timestamp gap where the camera rate divides the IMU's), K1 once per call, K2/K3 once per LM step of every visual
+    BA before the IMU init and never after; the plain path with the same
+    init, IMU-init call and keyframes, poses to 1e-3. Prints ms per call by
+    kind (before init, init, before the IMU init, the IMU-init call, the VI
+    lane, a keyframe with the VI BA);
+28. IMU-stereo: `track_stereo_inertial` at 752x480 with EuRoC's stereo
+    baseline: init on frame 0, the IMU initialized at fixed scale with the
+    chain within one keyframe of the reference's, the live trajectory's
+    ratio in RATIO_BOUNDS, keyframes +-1, one K1 launch per pair, K2/K3 as
+    in phase 27; the plain path as in phase 27;
+29. IMU-RGB-D: `track_rgbd_inertial` at phase 25's settings and world with
+    the IMU at 200 Hz, held as phase 28;
+30. MergeInertialBA (kernel path only): phase 28's kernel System as
+    system 1, a second IMU-stereo System over frames SEGMENT30.. of the
+    same scene, system 1 wrapped in a port `SlamAgent` welding system 2's
+    map in through the codec (`tests/test_vi_pipeline.py::
+    TestMergeInertialBA`'s layout): merged, at least 3 of the last 6 chain
+    keyframes with a velocity within 0.6 m/s of ground truth and the worst
+    within 3x the reference's, |bias_g| < 0.2, |bias_a| < 1.0, the global
+    BA folded in.
 
 Run from the root of a checkout: `python3 chip_smoke.py`. The last line is
 `{"ok": true, "device": {...}}`; the line before it the card's name and power
 limit, and before that one JSON line describing the kernels (times of phase
-15; launches summed over phases 12, 16, 17, 18 and 20-26, each counted
+15; launches summed over phases 12, 16, 17, 18 and 20-30, each counted
 around its main path's calls only). `python3 chip_smoke.py --kernels-only`
 runs phases 1-3, 7, 8 and 15
 (launch counts not taken) and prints no result line.
@@ -440,7 +476,7 @@ TRAJ23 = dict(lateral=2.6, forward=0.7, yaw=0.08)
 ATE23_BOUND_M = 0.25       # tests/test_three_agents.py:113
 # phase 21: four agents' maps seeded from the depth of these frames, then
 # STEPS21 steps of `build_multi_agent_step`
-STARTS21, STEPS21 = (0, 15, 30, 45), 10
+STARTS21, STEPS21 = (0, 15, 30, 45), 4
 # The JAX package's CPU reference of phase 22 (`python tests/test_torch_slice.py
 # --slice8 --protocol`: `build_protocol_step` on a 4-device CPU mesh, the same
 # maps, windows and draws): per round the draws' sum (the same generator on
@@ -697,6 +733,7 @@ TUM_VI_SETTINGS = {
     "kf_capacity": 512, "pt_capacity": 16384,
 }
 N_FRAMES9 = 40
+N_PLAIN9 = 8               # the plain path's calls in phases 24-26, held call by call
 # The JAX CPU reference of phase 24 runs at smaller capacities: its point
 # statistics hold a [kf_capacity, pt_capacity, 256] descriptor gather, 35 GB
 # of host memory at KITTI's 1024 x 32768. Capacities change no output while
@@ -935,7 +972,8 @@ def center_err(T_cw, T_gt) -> float:
 
 def run_slice(imgs, depth0, cfg, device):
     """Bootstrap from frame 0 (RGB-D), then track frames 1.. with the motion
-    model. Returns (map, n_created, [(n_inliers, T_cw, T_pred)])."""
+    model. Returns (map, n_created, [(n_inliers, T_cw, T_pred, ms)]), ms
+    the host clock around each frame's synchronised `make_and_track`."""
     import torch
 
     from dvm_slam_tpu_torch.frontend.extractor import make_frame_rgbd
@@ -951,10 +989,14 @@ def run_slice(imgs, depth0, cfg, device):
     T, vel, out = lie.se3_identity(device=device), lie.se3_identity(device=device), []
     for img in imgs[1:]:
         T_pred = lie.se3_mul(vel, T)
+        t0 = time.perf_counter()
         _, res, pv, pf = tracker.make_and_track(img, m, T_pred, K, dist, cfg)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
         m = m._replace(pt_visible=pv, pt_found=pf)
         T, vel = tracker.motion_model_step(T, res, cfg)
-        out.append((int(res.n_inliers), T.clone(), T_pred))
+        out.append((int(res.n_inliers), T.clone(), T_pred, ms))
     return m, int(n_created), out
 
 
@@ -2629,7 +2671,8 @@ def check_phase9(phase: int, runs, poses_gt, counts, card):
         if phase == 25:
             later = sum(c for s, c in k["log"]["close_points"] if s > 0)
             check(later > 0, f"{tag} no close points created at keyframes after the first")
-        check(p["log"]["stereo_matches"] == sm, f"{tag} the plain path's stereo matches differ")
+        check(p["log"]["stereo_matches"] == sm[:len(p["ms"])],
+              f"{tag} the plain path's stereo matches differ")
     else:
         ip = k["init_pair"]
         seeds = ref["init_by_seed"]
@@ -2654,12 +2697,459 @@ def check_phase9(phase: int, runs, poses_gt, counts, card):
         print(f"{tag} plain path: init {p['init_pair']}, initial poses differ by {d_init:.3e}")
         check(p["init_pair"] == ip and n_p == n_k and d_init <= POSE_ATOL,
               f"{tag} the plain path initialized otherwise")
-    d_pose = (float(np.abs(k["poses"] - p["poses"]).max()) if k["frames"] == p["frames"]
-              else float("inf"))
-    print(f"{tag} plain path: keyframes at {p['kf_frames']}; rows identical "
-          f"{k['frames'] == p['frames']}, poses differ by {d_pose:.3e}")
-    check(p["kf_frames"] == k["kf_frames"], f"{tag} keyframes differ between the paths")
+    # the plain path ran the first N_PLAIN9 calls: its rows and keyframes
+    # against the kernel run's over the same frames
+    n_p = len(p["ms"])
+    rows_k = [j for j, f in enumerate(k["frames"]) if f < n_p]
+    same = k["frames"][:len(rows_k)] == p["frames"]
+    d_pose = float(np.abs(k["poses"][rows_k] - p["poses"]).max()) if same else float("inf")
+    kf_k = [f for f in k["kf_frames"] if f < n_p]
+    print(f"{tag} plain path over the first {n_p} calls: keyframes at {p['kf_frames']} "
+          f"(kernels {kf_k}); rows identical {same}, poses differ by {d_pose:.3e}")
+    check(p["kf_frames"] == kf_k, f"{tag} keyframes differ between the paths")
     check(d_pose <= POSE_ATOL2, f"{tag} poses differ by {d_pose} between the paths")
+
+
+# Slice 10: the inertial sensor modes, each through its `System` entry
+# point. The IMU is `ImuSettings()` at its defaults (200 Hz; the noise and
+# walk of ORB-SLAM3's `Examples/Monocular-Inertial/EuRoC.yaml`), T_cb the
+# identity (the synthetic rig's body is its camera), the samples exact
+# (`vi_trajectory`). Phase 27: `configs/euroc.yaml` without distortion
+# (752x480 rendered, resized to 600x350, 1250 features, kf 512, pt 16384,
+# fps 20) with a black span after the IMU initializes; phase 28: the same
+# at 752x480 with ORB-SLAM3's `Examples/Stereo/EuRoC.yaml` baseline
+# (Camera.bf 47.906 / Camera.fx 435.205 = 0.1101 m) on `render_stereo`
+# pairs; phase 29: phase 25's TUM settings and world, the depth as uint16
+# sensor units. Frame i is stamped i / camera.fps.
+MODE10 = {27: "imu-monocular", 28: "imu-stereo", 29: "imu-rgbd"}
+EUROC_STEREO_BASELINE = 47.906 / 435.205
+N_FRAMES10 = {27: 76, 28: 72, 29: 96}
+BLANK10 = {27: (48, 54)}   # phase 27's black span, after the IMU init on the card and the reference
+TRAJ10 = {27: dict(lateral=2.0, forward=0.5, yaw=0.08, z_amp=0.3),
+          28: dict(lateral=2.0, forward=0.5, yaw=0.08, z_amp=0.3),
+          29: dict(lateral=0.8, forward=0.3, yaw=0.08, z_amp=0.1)}
+# the worlds: phases 27-28 on the JAX tests' VI world (seed 3, extent 30,
+# `tests/test_vi_pipeline.py:173`); on seed 7's layouts the reference's
+# monocular VI run breaks (a NaN BA on the default layout, fault l; a
+# mirrored two-view solution and negative scales on the dense one, fault o)
+WORLD10 = {27: dict(seed=3, plane_z=6.0, extent=30.0), 28: dict(seed=3, plane_z=6.0, extent=30.0),
+           29: dict(seed=7, **WORLD9[25])}
+SEGMENT30 = 36             # phase 30: system 2 takes frames SEGMENT30.. of phase 28's
+# the plain paths of phases 27-29 take their first N_PLAIN10 calls (past the
+# IMU init, and in phase 27 past the black span), held call by call
+N_PLAIN10 = {27: 58, 28: 46, 29: 87}
+RATIO_BOUNDS = (0.8, 1.25)  # tests/test_vi_pipeline.py:225,282
+# The JAX package's CPU references of phases 27-30 (`python
+# tests/test_torch_slice.py --slice10 [imu-mono|imu-stereo|imu-rgbd|merge]`:
+# its System on the same frames, the pipelined VI lane retiring at the next
+# dispatch): per mode the init pair (and for the monocular camera the whole
+# run under the draws of agents 0-5, `by_seed`: init pair, IMU init, n_kf,
+# ratio; `--slice10 imu-mono --seed N`), the call that initialized the IMU and
+# the chain length then, the frames that made keyframes, the final state,
+# the frames with a pose, the path-length ratio against ground truth (the
+# monocular camera's over the saved trajectory after the IMU-init call
+# outside the black span, the others' over the live poses); for the merge
+# each checked chain keyframe's velocity error (m/s) and the biases.
+JAX_REF10 = {'imu-monocular': {'by_seed': {0: {'imu_init': (27, 8),
+                                   'init_pair': (0, 1),
+                                   'n_kf': 17,
+                                   'ratio': 0.9980011084032867},
+                               1: {'imu_init': (42, 8),
+                                   'init_pair': (0, 2),
+                                   'n_kf': 14,
+                                   'ratio': 0.9980801353872202},
+                               2: {'imu_init': (27, 8),
+                                   'init_pair': (0, 1),
+                                   'n_kf': 17,
+                                   'ratio': 1.0005575023434605},
+                               3: {'imu_init': (32, 8),
+                                   'init_pair': (0, 1),
+                                   'n_kf': 16,
+                                   'ratio': 0.9955299620221371},
+                               4: {'imu_init': (27, 8),
+                                   'init_pair': (0, 1),
+                                   'n_kf': 17,
+                                   'ratio': 1.0024770342076834},
+                               5: {'imu_init': (45, 6),
+                                   'init_pair': (0, 6),
+                                   'n_kf': 11,
+                                   'ratio': 0.9921544809996631}},
+                   'final_state': 'OK',
+                   'imu_init': (27, 8),
+                   'init_pair': (0, 1),
+                   'kf_frames': [0, 1, 2, 5, 6, 14, 18, 26, 31, 36, 42, 47, 54, 58, 63, 68, 73],
+                   'n_kf': 17,
+                   'ratio': 0.9980011084032867,
+                   'tracked_frames': [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+                                      18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+                                      32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45,
+                                      46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59,
+                                      60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73,
+                                      74, 75]},
+ 'imu-rgbd': {'final_state': 'OK',
+              'imu_init': (85, 6),
+              'init_pair': (0, 0),
+              'kf_frames': [0, 2, 14, 28, 58, 84, 92],
+              'n_kf': 7,
+              'ratio': 1.0018669736100858,
+              'tracked_frames': [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+                                 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33,
+                                 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49,
+                                 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64, 65,
+                                 66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81,
+                                 82, 83, 84, 85, 86, 87, 88, 89, 90, 91, 92, 93, 94, 95]},
+ 'imu-stereo': {'final_state': 'OK',
+                'imu_init': (43, 5),
+                'init_pair': (0, 0),
+                'kf_frames': [0, 2, 11, 22, 42, 47, 52, 57, 62, 67],
+                'n_kf': 10,
+                'ratio': 1.0002018420933325,
+                'tracked_frames': [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+                                   18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32,
+                                   33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47,
+                                   48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62,
+                                   63, 64, 65, 66, 67, 68, 69, 70, 71]},
+ 'merge': {'bias_a': 0.011208871379494667,
+           'bias_g': 0.0022686549928039312,
+           'gba_applied': True,
+           'merged': True,
+           'vel_err': {42: 0.00759275583550334,
+                       47: 0.008579082787036896,
+                       52: 0.0068838102743029594,
+                       57: 0.008005303330719471,
+                       62: 0.009963414631783962,
+                       67: 0.015336157754063606}}}
+
+
+def settings10(phase: int, module):
+    """Phase 27-29's settings through `module.settings_from_dict`, with the
+    IMU at its defaults."""
+    d = {k: dict(v) if isinstance(v, dict) else v
+         for k, v in (TUM_SETTINGS if phase == 29 else EUROC_SETTINGS).items()}
+    if phase == 28:
+        del d["camera"]["new_width"], d["camera"]["new_height"]
+        d["camera"]["baseline"] = EUROC_STEREO_BASELINE
+    s = module.settings_from_dict(d)
+    s.imu = module.ImuSettings()
+    return s
+
+
+def scene10(phase: int, device):
+    """Phase `phase`'s inputs rendered on the card by the port's world at the
+    camera's full size, the IMU chunks and the ground truth: (frames,
+    chunks, poses, velocities)."""
+    from dvm_slam_tpu_torch.io import config, synthetic
+
+    cam = settings10(phase, config).camera
+    world = synthetic.PlaneWorld(tex_size=TEX_SIZE, device=device, **WORLD10[phase])
+    poses, chunks, vels = synthetic.vi_trajectory(N_FRAMES10[phase], fps=cam.fps,
+                                                  imu_rate=settings10(phase, config).imu.frequency,
+                                                  **TRAJ10[phase])
+    K = (cam.fx, cam.fy, cam.cx, cam.cy)
+    h, w = cam.height, cam.width
+    lo, hi = BLANK10.get(phase, (0, 0))
+    frames = []
+    for i, p in enumerate(poses):
+        if phase == 27:
+            frames.append((world.render(p, K, h, w) * (0.0 if lo <= i < hi else 1.0),))
+        elif phase == 28:
+            frames.append(world.render_stereo(p, K, h, w, cam.baseline))
+        else:
+            frames.append((world.render(p, K, h, w),
+                           depth_to_sensor(world.render_depth(p, K, h, w).cpu().numpy())))
+    return frames, chunks, poses, vels
+
+
+def path_ratio(est, gt) -> float:
+    """Path length of the estimated camera centers over the true ones'."""
+    c = lambda T: np.linalg.inv(_se3_matrix(T))[:3, 3]  # noqa: E731
+    e = np.stack([c(T) for T in est])
+    g = np.stack([c(T) for T in gt])
+    return float(np.linalg.norm(np.diff(e, axis=0), axis=1).sum()
+                 / np.linalg.norm(np.diff(g, axis=0), axis=1).sum())
+
+
+def cuda_launches(fn):
+    """Run fn() under `torch.profiler` and count the kernels it launched on
+    the card (device-side events). Returns (fn's result, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    n = sum(e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type))
+    return out, n
+
+
+def run_vi(phase: int, frames, chunks, device, use_kernel, out_dir, sysm=None, first=0,
+           n_profiled: int = 0):
+    """Phase `phase`'s frames (from `first`) through a port System's
+    `track_*_inertial`, each call synchronised and timed, the pipelined VI
+    lane retiring a record as soon as the next one is dispatched (fault s).
+    The `n_profiled` calls after the one following the IMU init run under
+    `torch.profiler` instead, counting their kernel launches. Returns a dict
+    of the run's outcomes."""
+    import torch
+
+    from dvm_slam_tpu_torch.geometry import two_view
+    from dvm_slam_tpu_torch.io import config, trajectory
+    from dvm_slam_tpu_torch.mapping import local_mapping
+    from dvm_slam_tpu_torch.models.system import System
+    from dvm_slam_tpu_torch.tracking import tracker as trk
+
+    settings = settings10(phase, config)
+    fps = settings.camera.fps
+    log = {"inits": [], "visual_ba": [], "imu_init_counts": None}
+    saved = (two_view.reconstruct_two_views, local_mapping.local_ba)
+
+    def recording(*args, **kwargs):
+        res = saved[0](*args, **kwargs)
+        log["inits"].append(res)
+        return res
+
+    def counting_ba(*args, **kwargs):
+        log["visual_ba"].append(kwargs.get("iters", 6))
+        return saved[1](*args, **kwargs)
+
+    two_view.reconstruct_two_views, local_mapping.local_ba = recording, counting_ba
+    try:
+        if sysm is None:
+            sysm = System(settings, sensor=MODE10[phase], device=device, use_kernel=use_kernel)
+        t = sysm.tracker
+        t._record_ready = lambda rec: True
+        init_pair, imu_init, calls, live, profiled = None, None, [], {}, []
+
+        def one(i):
+            fr = frames[i]
+            ts = (i - first) / fps
+            if phase == 27:
+                return sysm.track_monocular_inertial(fr[0], ts, *chunks[i])
+            if phase == 28:
+                return sysm.track_stereo_inertial(fr[0], fr[1], ts, *chunks[i])
+            return sysm.track_rgbd_inertial(fr[0], fr[1], ts, *chunks[i])
+
+        for i in range(first, len(frames)):
+            was, n_kf0, imu0 = t.state, t.n_kf_host, t.imu_initialized
+            prof = imu_init is not None and imu_init[0] + 2 <= i < imu_init[0] + 2 + n_profiled
+            t0 = time.perf_counter()
+            if prof:
+                p, n_launch = cuda_launches(lambda: one(i))
+            else:
+                p = one(i)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if p is not None:
+                live[i] = p.detach().cpu().numpy()
+            if was == trk.NOT_INITIALIZED and t.state == trk.OK and init_pair is None:
+                init_pair = (int(round(t._init_ts * fps)) + first if phase == 27 else i, i)
+                kind = "init"
+            elif t.state == trk.NOT_INITIALIZED:
+                kind = "before init"
+            elif t.imu_initialized and not imu0:
+                imu_init = (i, len(t.kf_chain))
+                log["imu_init_counts"] = counts_now()
+                kind = "IMU init"
+            elif not t.imu_initialized:
+                kind = "before IMU init"
+            elif t.n_kf_host > n_kf0:
+                kind = "keyframe, VI BA"
+            else:
+                kind = "VI lane"
+            if prof:
+                profiled.append((kind, n_launch))
+            else:
+                calls.append((kind, ms))
+        t.flush_pipeline()
+        tag = "plain" if use_kernel is False else "kernels"
+        path = os.path.join(out_dir, f"phase{phase}_{tag}_tum.txt")
+        sysm.save_trajectory_tum(path)
+    finally:
+        two_view.reconstruct_two_views, local_mapping.local_ba = saved
+    rows = trajectory.load_tum(path)
+    m = sysm.map
+    n_kf = int(m.n_kf)
+    kf_ts = t.kf_timestamps
+    # each chain keyframe's window against the IMU samples of the frames
+    # since the previous chain keyframe (the chunks cover (t_{i-1}, t_i])
+    kf_f = {sl: int(round(kf_ts[sl] * fps)) + first for sl in t.kf_chain}
+    gaps = [abs(float(t.kf_preint[c].dT)
+                - float(sum(chunks[i][2].sum() for i in range(kf_f[p] + 1, kf_f[c] + 1))))
+            for p, c in zip(t.kf_chain[:-1], t.kf_chain[1:]) if c in t.kf_preint]
+    return dict(system=sysm, init_pair=init_pair, imu_init=imu_init, calls=calls, log=log,
+                profiled=profiled, n_calls=len(frames) - first, refines=t.n_vi_refines,
+                live=live, frames=[int(round(ts * fps)) + first for ts, _ in rows],
+                poses=np.stack([T for _, T in rows]),
+                kf_frames=sorted(int(round(v * fps)) + first for v in kf_ts.values()),
+                n_kf=n_kf, state=t.state, imu_initialized=t.imu_initialized,
+                preint_gap=max(gaps) if gaps else None, n_preint=len(gaps),
+                finite=bool(torch.isfinite(m.kf_pose[:n_kf]).all())
+                and bool(torch.isfinite(m.pt_pos).all()))
+
+
+def vi_ratio(phase: int, run, poses_gt) -> float:
+    """The path-length ratio the phase is held to: over the saved trajectory
+    after the IMU-init call outside the black span (monocular), or over the
+    live poses (stereo, RGB-D: metric from the first frame)."""
+    if phase == 27:
+        lo, hi = BLANK10[27]
+        start = run["imu_init"][0] + 1
+        keep = [k for k, f in enumerate(run["frames"]) if f >= start and not lo <= f < hi]
+        est = run["poses"][keep]
+        gt = [poses_gt[run["frames"][k]] for k in keep]
+    else:
+        idx = sorted(run["live"])
+        est = [run["live"][i] for i in idx]
+        gt = [poses_gt[i] for i in idx]
+    return path_ratio(est, gt)
+
+
+def check_phase10(phase: int, runs, poses_gt, counts, card):
+    """Phases 27-29 held to the JAX CPU reference (`JAX_REF10`) and the
+    kernel path to the plain path."""
+    ref = JAX_REF10[MODE10[phase]]
+    k, p = runs["kernels"], runs["plain"]
+    tag = f"[{phase}]"
+    n = k["n_calls"]
+    check(k["imu_init"] is not None, f"{tag} the IMU never initialized (init {k['init_pair']}, "
+                                     f"keyframes at {k['kf_frames']})")
+    ratio = vi_ratio(phase, k, poses_gt)
+    print(f"{tag} {MODE10[phase]}: init {k['init_pair']} (JAX CPU ref {tuple(ref['init_pair'])}); "
+          f"IMU initialized at call {k['imu_init']} (call, chain keyframes; ref "
+          f"{tuple(ref['imu_init'])}); final state {k['state']}; keyframes at frames "
+          f"{k['kf_frames']} (ref {ref['kf_frames']}); frames with a pose {len(k['frames'])} "
+          f"(ref {len(ref['tracked_frames'])}); path-length ratio {ratio:.6f} (ref "
+          f"{ref['ratio']:.6f}); largest |preint dT - the window's sample time| {k['preint_gap']} s over "
+          f"{k['n_preint']} windows")
+    groups = {}
+    for kind, ms in k["calls"]:
+        groups.setdefault(kind, []).append(ms)
+    for kind, ms in groups.items():
+        ms = np.asarray(ms)
+        print(f"{tag} track_{'monocular' if phase == 27 else MODE10[phase][4:]}_inertial with "
+              f"kernels, {kind} calls: median {np.median(ms):.2f} ms, p90 "
+              f"{np.percentile(ms, 90):.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
+    print(f"{tag} launches {counts}; at the IMU init {k['log']['imu_init_counts']}; visual BAs "
+          f"{k['log']['visual_ba']}; pose-inertial refinements on the VI lane {k['refines']}; "
+          f"CUDA kernel launches per profiled call {k['profiled']}")
+    check(k["state"] == "OK" and k["finite"], f"{tag} final state {k['state']}, or a non-finite map")
+    check(counts["orb_describe"] == n, f"{tag} {counts['orb_describe']} K1 launches for {n} calls")
+    want2 = sum(it + 6 for it in k["log"]["visual_ba"])
+    want3 = sum(it + 7 for it in k["log"]["visual_ba"])
+    check(counts["onehot_adjoint"] == want2 and counts["onehot_gather"] == want3,
+          f"{tag} K2/K3 launches {counts}, want {want2}/{want3} for {k['log']['visual_ba']}")
+    check(len(k["log"]["visual_ba"]) >= 1, f"{tag} no visual BA ran before the IMU init")
+    at_init = k["log"]["imu_init_counts"]
+    check(at_init["onehot_adjoint"] == counts["onehot_adjoint"]
+          and at_init["onehot_gather"] == counts["onehot_gather"],
+          f"{tag} K2/K3 launched after the IMU init: {at_init} -> {counts}")
+    check(k["preint_gap"] is not None and k["preint_gap"] < 1e-3,
+          f"{tag} a keyframe's preintegration spans {k['preint_gap']} s off its samples")
+    check(RATIO_BOUNDS[0] < ratio < RATIO_BOUNDS[1], f"{tag} path-length ratio {ratio}")
+    if phase == 27:
+        # the two-view init depends on the draws (fault o), and with it the
+        # keyframes and the IMU-init call: hold the run to the reference's
+        # runs under the draws of agents 0-5 that initialized on the same pair
+        ip = k["init_pair"]
+        runs = list(ref["by_seed"].values())
+        same = [r for r in runs if tuple(r["init_pair"]) == ip]
+        print(f"{tag} JAX CPU ref over agents 0-5 (init pair, IMU init, keyframes, ratio): "
+              f"{[(r['init_pair'], r['imu_init'], r['n_kf'], round(r['ratio'], 6)) for r in runs]}")
+        check(bool(same), f"{tag} init at {ip}, a pair the ref makes under none of the draws")
+        check(min(abs(k["imu_init"][1] - r["imu_init"][1]) for r in same) <= 1,
+              f"{tag} IMU init with {k['imu_init'][1]} chain keyframes, ref {same}")
+        check(min(abs(k["n_kf"] - r["n_kf"]) for r in same) <= 2,
+              f"{tag} {k['n_kf']} keyframes, ref {same}")
+        worst = max(max(abs(r["ratio"] - 1.0) for r in same), 0.01)
+        check(abs(ratio - 1.0) <= 3 * worst, f"{tag} ratio {ratio} off 1 by more than 3x {worst}")
+        lo, hi = BLANK10[27]
+        check(all(i in k["live"] for i in range(lo, hi)), f"{tag} a black frame has no pose")
+        after = [f for f in k["frames"] if f > k["imu_init"][0] and not lo <= f < hi]
+        check(len(after) >= 15, f"{tag} {len(after)} frames after the IMU init outside the span")
+    else:
+        check(abs(k["imu_init"][1] - ref["imu_init"][1]) <= 1,
+              f"{tag} IMU init with {k['imu_init'][1]} chain keyframes, ref {ref['imu_init'][1]}")
+        check(k["init_pair"] == (0, 0), f"{tag} init {k['init_pair']}")
+        check(abs(k["n_kf"] - ref["n_kf"]) <= 1, f"{tag} {k['n_kf']} keyframes, ref {ref['n_kf']}")
+        check(sorted(k["live"]) == list(range(n)), f"{tag} a frame without a pose")
+    # the plain path took the first N_PLAIN10 calls: its poses (as each call
+    # returned them: the saved rows of the longer kernel run are re-based
+    # again by later scale refinements) and keyframes against the kernel
+    # run's over the same frames
+    n_p = p["n_calls"]
+    same = sorted(p["live"]) == [i for i in sorted(k["live"]) if i < n_p]
+    d_pose = (max(float(np.abs(k["live"][i] - p["live"][i]).max()) for i in p["live"])
+              if same else float("inf"))
+    kf_k = [f for f in k["kf_frames"] if f < n_p]
+    print(f"{tag} plain path over the first {n_p} calls: init {p['init_pair']}, IMU init "
+          f"{p['imu_init']}, keyframes at {p['kf_frames']} (kernels {kf_k}); the same frames "
+          f"with a pose {same}, poses differ by {d_pose:.3e}")
+    check(p["init_pair"] == k["init_pair"] and p["imu_init"] == k["imu_init"],
+          f"{tag} the plain path initialized otherwise")
+    check(p["kf_frames"] == kf_k, f"{tag} keyframes differ between the paths")
+    check(d_pose <= POSE_ATOL2, f"{tag} poses differ by {d_pose} between the paths")
+
+
+def run_merge10(sys1, frames, chunks, device, vocab, out_dir):
+    """Phase 30: phase 28's kernel System as system 1 (frames 0..), a second
+    IMU-stereo System over frames SEGMENT30.., and system 1 wrapped in a
+    port `SlamAgent` that welds system 2's map in through the codec
+    (`_do_merge` with the identity Sim3: one metric world), as
+    `tests/test_vi_pipeline.py::TestMergeInertialBA`. Returns the agent and
+    the merge's seconds."""
+    import torch
+
+    from dvm_slam_tpu_torch.geometry import lie
+    from dvm_slam_tpu_torch.multiagent import agent as agent_mod
+    from dvm_slam_tpu_torch.multiagent import codec, transport
+    from dvm_slam_tpu_torch.placerec import vocabulary
+
+    run2 = run_vi(28, frames, chunks, device, None, out_dir, first=SEGMENT30)
+    sys2 = run2["system"]
+    t1 = sys1.tracker
+    t1.flush_pipeline()
+    mask = sys2.map.kf_valid.cpu().numpy().copy()
+    mask[int(sys2.map.n_kf):] = False
+    blob = codec.extract_submap(sys2.map, sys2.tracker.meta, mask).to_bytes()
+    cfg = t1.config
+    a = agent_mod.SlamAgent(1, cfg, sys1.settings.camera.K(), np.zeros(4, np.float32),
+                            vocabulary.load(vocab), transport.LoopbackTransport(), [1, 2],
+                            autonomous=False, device=device)
+    a.tracker = t1
+    t1.meta.agent_id = 1
+    mB, metaB = codec.materialize(codec.MapPacket.from_bytes(blob), cfg.frontend.capacity,
+                                  device=device)
+    t0 = time.perf_counter()
+    a._do_merge(2, mB, metaB, lie.sim3_identity(device=device), t1.kf_chain[-1])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    a.flush_gba()
+    return a, merge_s, run2
+
+
+def check_phase30(agent, merge_s, vels, counts, card):
+    """Phase 30 held to ground truth and the JAX CPU reference."""
+    ref = JAX_REF10["merge"]
+    t = agent.tracker
+    fps = t.config.fps
+    errs = {}
+    for s in t.kf_chain[-6:]:
+        i = int(round(t.kf_timestamps[s] * fps))
+        if 0 <= i < len(vels):
+            errs[i] = float(np.linalg.norm(np.asarray(t.kf_vel[s]) - vels[i]))
+    bg, ba = float(np.linalg.norm(t.bias_g)), float(np.linalg.norm(t.bias_a))
+    worst_ref = max(ref["vel_err"].values())
+    print(f"[30] merged {('merged', 2) in agent.log}; merge {merge_s:.2f} s on {card}; chain "
+          f"velocity errors by frame {errs} m/s (JAX CPU ref {ref['vel_err']}); |bias_g| "
+          f"{bg:.6f} (ref {ref['bias_g']:.6f}), |bias_a| {ba:.6f} (ref {ref['bias_a']:.6f}); "
+          f"launches {counts}; log kinds {sorted({e[0] for e in agent.log})}")
+    check(("merged", 2) in agent.log, "[30] the inertial merge did not happen")
+    check(len(errs) >= 3 and max(errs.values()) < 0.6, f"[30] chain velocities off: {errs}")
+    check(max(errs.values()) <= 3 * max(worst_ref, 0.01),
+          f"[30] velocity error above 3x the reference's {worst_ref}")
+    check(bg < 0.2 and ba < 1.0, f"[30] biases |bg| {bg}, |ba| {ba}")
+    check(any(e[0] == "gba_applied" for e in agent.log), "[30] the global BA was not folded in")
 
 
 def time_host_ms(fn, reps: int) -> float:
@@ -2890,15 +3380,15 @@ def main(kernels_only: bool = False) -> int:
     launches = orb_kernel.launches
     print(f"[4] bootstrap created {n_created} points; {len(run_k)} frames tracked in {wall:.2f} s "
           f"(first call included)")
-    errs = [center_err(T, gt) for (_, T, _), gt in zip(run_k, poses[1:])]
-    for i, ((n, _, _), e, ref) in enumerate(zip(run_k, errs, JAX_REF_INLIERS), start=1):
+    errs = [center_err(T, gt) for (_, T, _, _), gt in zip(run_k, poses[1:])]
+    for i, ((n, _, _, _), e, ref) in enumerate(zip(run_k, errs, JAX_REF_INLIERS), start=1):
         print(f"[4] frame {i:2d}: inliers {n:4d} (JAX CPU ref {ref:4d}), trans err {e:.5f} m")
     print(f"[4] K1 launches: {launches} for {N_FRAMES} extracted frames of {N_LEVELS} levels")
     check(launches == N_FRAMES, f"{launches} K1 launches, expected one per frame ({N_FRAMES})")
-    check(all(n >= cfg_k.min_track_inliers for n, _, _ in run_k),
+    check(all(n >= cfg_k.min_track_inliers for n, _, _, _ in run_k),
           f"a frame fell below {cfg_k.min_track_inliers} inliers")
     check(max(errs) < ERR_BOUND_M, f"translation error {max(errs):.5f} m >= {ERR_BOUND_M:.5f} m")
-    check(all(np.isfinite(T.cpu().numpy()).all() for _, T, _ in run_k), "non-finite pose")
+    check(all(np.isfinite(T.cpu().numpy()).all() for _, T, _, _ in run_k), "non-finite pose")
     print(f"[4] max trans err {max(errs):.5f} m (bound {ERR_BOUND_M:.5f} m = 3x the JAX CPU "
           f"reference's {JAX_REF_MAX_ERR_M} m)")
     phase_done(4)
@@ -2915,29 +3405,12 @@ def main(kernels_only: bool = False) -> int:
     check(pose_diff <= POSE_ATOL, f"poses differ by {pose_diff}")
     phase_done(5)
 
-    # ---- 6. timing -------------------------------------------------------
-    K = torch.tensor(K_EUROC, dtype=torch.float32, device=dev)
-    dist = torch.zeros(4, device=dev)
-    preds = [T_pred for _, _, T_pred in run_k]
-
-    def frame_ms(cfg):
-        """Per-frame make_and_track latency in ms, each frame synchronised."""
-        out = []
-        for img, T_pred in zip(imgs[1:], preds):
-            t0 = time.perf_counter()
-            tracker.make_and_track(img, m, T_pred, K, dist, cfg)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return np.asarray(out)
-
-    # one timed pass per path, after one warm-up pass of each
-    frame_ms(cfg_k), frame_ms(cfg_t)
-    for name, cfg in (("K1", cfg_k), ("twin", cfg_t)):
-        ms = frame_ms(cfg)
-        q1, med, q3 = np.percentile(ms, [25, 50, 75])
-        print(f"[6] make_and_track with {name}: median {med:.2f} ms/frame "
-              f"(IQR {q1:.2f}-{q3:.2f}, max {ms.max():.2f}, n={len(ms)}) = "
-              f"{len(ms) / ms.sum() * 1e3:.2f} frames/s on {card}")
+    # ---- 6. timing: phase 4's frames, each synchronised --------------------
+    ms = np.asarray([r[3] for r in run_k])
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"[6] make_and_track with K1: median {med:.2f} ms/frame "
+          f"(IQR {q1:.2f}-{q3:.2f}, max {ms.max():.2f}, n={len(ms)}) = "
+          f"{len(ms) / ms.sum() * 1e3:.2f} frames/s on {card}")
 
     # outputs of the final state are finite and shaped as the map says
     check(m.pt_pos.shape == (8192, 3) and bool(torch.isfinite(m.pt_pos).all()), "map points")
@@ -2958,7 +3431,7 @@ def main(kernels_only: bool = False) -> int:
     imgs2, poses2 = imgs_all[:N_FRAMES2], poses_all[:N_FRAMES2]
     orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
     t0 = time.perf_counter()
-    m2, n2, run2 = run_slice2(imgs2, depth0, cfg2_k, dev)
+    m2, n2, run2 = run_slice2(imgs2, depth0, cfg2_k, dev, timed=True)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     counts = {"orb_describe": orb_kernel.launches,
@@ -3029,14 +3502,11 @@ def main(kernels_only: bool = False) -> int:
         no = np.asarray([r[4] for r in run if not r[1]])
         return kf, no
 
-    # the host's clock drifts between passes more than the kernels move it:
-    # compare these passes only for what they say about the host
-    for name, cfg in (("kernels", cfg2_k), ("plain", cfg2_p)):
-        _, _, run = run_slice2(imgs2, depth0, cfg, dev, timed=True)
-        for what, ms in zip(("with a keyframe", "without"), split(run)):
-            p50, p90 = np.percentile(ms, [50, 90])
-            print(f"[11] autonomous_step with {name}, frames {what}: median {p50:.2f} ms, "
-                  f"p90 {p90:.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
+    # phase 9's run, each frame synchronised and timed
+    for what, ms in zip(("with a keyframe", "without"), split(run2)):
+        p50, p90 = np.percentile(ms, [50, 90])
+        print(f"[11] autonomous_step with kernels, frames {what}: median {p50:.2f} ms, "
+              f"p90 {p90:.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
     K = torch.tensor(K_EUROC, dtype=torch.float32, device=dev)
     center = torch.as_tensor(int(m2.n_kf) - 1, dtype=torch.int32, device=dev)
     ba_ms = {}
@@ -3054,7 +3524,7 @@ def main(kernels_only: bool = False) -> int:
     vocab = os.path.join(os.path.dirname(os.path.abspath(__file__)), VOCAB)
     orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
     t0 = time.perf_counter()
-    run3 = run_slice3(imgs_all, dev, None, vocabulary=vocab)
+    run3 = run_slice3(imgs_all, dev, None, vocabulary=vocab, timed=True)
     frames3, kf3, ate3 = slice3_outcome(run3, poses_all,
                                         os.path.join(out_dir, "slice3_kernels_tum.txt"))
     torch.cuda.synchronize()
@@ -3140,13 +3610,12 @@ def main(kernels_only: bool = False) -> int:
 
     # ---- 14. timing -----------------------------------------------------------------
     groups = {}
-    for name, uk in (("kernels", None), ("plain", False)):
-        for kind, ms in run_slice3(imgs_all, dev, uk, timed=True)["calls"]:
-            groups.setdefault((name, kind), []).append(ms)
-    for (name, kind), ms in sorted(groups.items()):
+    for kind, ms in run3["calls"]:   # phase 12's calls, each synchronised and timed
+        groups.setdefault(kind, []).append(ms)
+    for kind, ms in sorted(groups.items()):
         ms = np.asarray(ms)
         p50, p90 = np.percentile(ms, [50, 90])
-        print(f"[14] track_monocular with {name}, {kind} calls: median {p50:.2f} ms, p90 "
+        print(f"[14] track_monocular with kernels, {kind} calls: median {p50:.2f} ms, p90 "
               f"{p90:.2f} ms, max {ms.max():.2f} ms (n={len(ms)}) on {card}")
     phase_done(14)
 
@@ -3279,8 +3748,11 @@ def main(kernels_only: bool = False) -> int:
             if name == "kernels":
                 zero_counts()
             t0 = time.perf_counter()
-            runs9[name] = run_sensor(phase, frames9, dev, uk, out_dir)
-            print(f"[{phase}] {name}: {len(frames9)} calls in {time.perf_counter() - t0:.2f} s")
+            # the plain path takes the first N_PLAIN9 calls, held call by call
+            runs9[name] = run_sensor(phase, frames9 if uk is None else frames9[:N_PLAIN9], dev,
+                                     uk, out_dir)
+            print(f"[{phase}] {name}: {len(runs9[name]['ms'])} calls in "
+                  f"{time.perf_counter() - t0:.2f} s")
             if name == "kernels":
                 counts9 = counts_now()
             else:
@@ -3289,6 +3761,41 @@ def main(kernels_only: bool = False) -> int:
         check_phase9(phase, runs9, poses9, counts9, card)
         del runs9, frames9
         phase_done(phase)
+
+    # ---- 27-29. the inertial modes through their System entry points,
+    # kernels then plain versions; phase 28's kernel System is phase 30's
+    # system 1
+    for phase in (27, 28, 29):
+        frames10, chunks10, poses10, vels10 = scene10(phase, dev)
+        runs10 = {}
+        for name, uk in (("kernels", None), ("plain", False)):
+            before = counts_now()
+            if name == "kernels":
+                zero_counts()
+            t0 = time.perf_counter()
+            n = N_FRAMES10[phase] if uk is None else N_PLAIN10[phase]
+            runs10[name] = run_vi(phase, frames10[:n], chunks10, dev, uk, out_dir,
+                                  n_profiled=1 if uk is None and phase == 27 else 0)
+            print(f"[{phase}] {name}: {runs10[name]['n_calls']} calls in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            if name == "kernels":
+                counts10 = counts_now()
+            else:
+                check(counts_now() == before, f"[{phase}] the plain path launched a kernel")
+        counts6[f"phase {phase}"] = counts10
+        check_phase10(phase, runs10, poses10, counts10, card)
+        if phase == 28:
+            sys30 = (runs10["kernels"]["system"], frames10, chunks10, vels10)
+        del runs10, frames10
+        phase_done(phase)
+
+    # ---- 30. MergeInertialBA: phase 28's System welds a second one's map
+    zero_counts()
+    agent30, merge_s, _ = run_merge10(sys30[0], sys30[1], sys30[2], dev, vocab, out_dir)
+    counts6["phase 30"] = counts_now()
+    check_phase30(agent30, merge_s, sys30[3], counts6["phase 30"], card)
+    del agent30, sys30
+    phase_done(30)
     print(f"total {time.perf_counter() - t_start:.2f} s")
 
     errs = {"orb_describe": worst_ang, "onehot_adjoint": k2_err, "onehot_gather": k3_err}

@@ -18,7 +18,12 @@ map, meta, database, covisibility, keyframe timestamps) as a dict of those.
 The agents' batch axis (`parallel/multi_agent.py`) crosses the same way:
 a `MeshProtocolState` as a dict of numpy arrays, and MapStates or protocol
 states stacked on a leading agent axis (the reference's `stack_agents`)
-field by field with that axis, through the same functions.
+field by field with that axis, through the same functions. The inertial
+types cross the same way: a `Preintegrated` (one or stacked on a leading
+axis), a `ViWindow` and an `ImuState` as dicts of numpy arrays, an
+`ImuCalib` as its four floats; the tracker's host state carries its
+inertial members (the keyframe chain, its preintegrations, velocities and
+biases, the pending IMU chunks) when the tracker has them.
 """
 
 from __future__ import annotations
@@ -29,12 +34,15 @@ import numpy as np
 import torch
 
 from .frontend.extractor import Frame, FrontendConfig
+from .geometry.imu import ImuCalib, Preintegrated
 from .io import config
 from .mapping.atlas import StoredMap
+from .mapping.inertial import ImuState
 from .mapping.map_state import MapMeta, MapState
 from .parallel.multi_agent import MeshProtocolState
 from .placerec.database import BowDatabase
 from .placerec.vocabulary import Vocabulary
+from .mapping.vi_ba import ViWindow
 from .tracking.tracker import AutoState, TrackerConfig
 
 
@@ -79,6 +87,39 @@ def auto_state_to_numpy(st: AutoState) -> dict:
     return _to_numpy(st)
 
 
+def preintegrated_from_numpy(arrays: dict, device=None) -> Preintegrated:
+    return _to_tensors(Preintegrated, arrays, device)
+
+
+def preintegrated_to_numpy(p) -> dict:
+    """A `Preintegrated` of either package as a dict of numpy arrays."""
+    return {k: _np(v) for k, v in p._asdict().items()}
+
+
+def imu_calib_from_numpy(arrays: dict) -> ImuCalib:
+    return ImuCalib(**{k: float(np.float32(v)) for k, v in arrays.items()})
+
+
+def imu_calib_to_numpy(c) -> dict:
+    return {k: np.float32(_np(v)) for k, v in c._asdict().items()}
+
+
+def vi_window_from_numpy(arrays: dict, device=None) -> ViWindow:
+    return _to_tensors(ViWindow, arrays, device)
+
+
+def vi_window_to_numpy(w) -> dict:
+    return {k: _np(v) for k, v in w._asdict().items()}
+
+
+def imu_state_from_numpy(arrays: dict, device=None) -> ImuState:
+    return _to_tensors(ImuState, arrays, device)
+
+
+def imu_state_to_numpy(s) -> dict:
+    return {k: _np(v) for k, v in s._asdict().items()}
+
+
 def tracker_config_from_dict(d: dict) -> TrackerConfig:
     fe = dict(d["frontend"])
     fe["use_kernel"] = fe.pop("use_pallas", fe.get("use_kernel"))
@@ -109,6 +150,12 @@ def system_settings_from_dict(d: dict) -> config.SystemSettings:
 
 _HOST_STATE = ("last_pose", "velocity", "frames_since_kf", "ref_kf_tracked", "state",
                "n_kf_host", "last_kf_slot", "kf_timestamps")
+_VI_HOST_STATE = ("imu_initialized", "vel_w", "bias_g", "bias_a", "kf_chain", "kf_preint",
+                  "kf_vel", "kf_bias", "_imu_kf", "_imu_frame", "_imu_seq", "_last_good_ts")
+
+
+def _chunks(chunks):
+    return [tuple(np.array(c, np.float32) for c in ch) for ch in chunks]
 
 
 def _np(x):
@@ -120,12 +167,24 @@ def _np(x):
 def tracker_host_state_to_numpy(t) -> dict:
     """The host state of a `MonocularTracker` of either package: poses as
     numpy [7], counters as ints, the state name, keyframe timestamps."""
-    return {
+    d = {
         "last_pose": _np(t.last_pose), "velocity": _np(t.velocity),
         "frames_since_kf": int(t.frames_since_kf), "ref_kf_tracked": int(t.ref_kf_tracked),
         "state": t.state, "n_kf_host": int(t.n_kf_host), "last_kf_slot": int(t.last_kf_slot),
         "kf_timestamps": dict(t.kf_timestamps),
     }
+    if getattr(t, "inertial", False):
+        d.update(
+            imu_initialized=bool(t.imu_initialized), vel_w=np.array(_np(t.vel_w), np.float32),
+            bias_g=np.array(_np(t.bias_g), np.float32),
+            bias_a=np.array(_np(t.bias_a), np.float32), kf_chain=[int(s) for s in t.kf_chain],
+            kf_preint={int(s): preintegrated_to_numpy(p) for s, p in t.kf_preint.items()},
+            kf_vel={int(s): np.array(_np(v), np.float32) for s, v in t.kf_vel.items()},
+            kf_bias={int(s): (np.array(_np(bg), np.float32), np.array(_np(ba), np.float32))
+                     for s, (bg, ba) in t.kf_bias.items()},
+            _imu_kf=_chunks(t._imu_kf), _imu_frame=_chunks(t._imu_frame),
+            _imu_seq=int(t._imu_seq), _last_good_ts=t._last_good_ts)
+    return d
 
 
 def tracker_host_state_from_numpy(t, d: dict):
@@ -137,6 +196,24 @@ def tracker_host_state_from_numpy(t, d: dict):
             v = torch.as_tensor(np.asarray(v, np.float32), device=t.device)
         elif k == "kf_timestamps":
             v = dict(v)
+        setattr(t, k, v)
+    if "imu_initialized" not in d:
+        return
+    for k in _VI_HOST_STATE:
+        v = d[k]
+        if k == "kf_preint":
+            v = {int(s): preintegrated_from_numpy(p, t.device) for s, p in v.items()}
+        elif k in ("vel_w", "bias_g", "bias_a"):
+            v = np.array(v, np.float32)
+        elif k == "kf_vel":
+            v = {int(s): np.array(x, np.float32) for s, x in v.items()}
+        elif k == "kf_bias":
+            v = {int(s): (np.array(bg, np.float32), np.array(ba, np.float32))
+                 for s, (bg, ba) in v.items()}
+        elif k in ("_imu_kf", "_imu_frame"):
+            v = _chunks(v)
+        elif k == "kf_chain":
+            v = list(v)
         setattr(t, k, v)
 
 

@@ -69,8 +69,8 @@ class OrbSettings:
 
 @dataclasses.dataclass
 class ImuSettings:
-    """`Settings::readIMU` fields and the body-camera extrinsic. Kept as
-    data; the inertial sensor modes are ROADMAP item 13b."""
+    """`Settings::readIMU` fields (IMU.NoiseGyro/NoiseAcc/GyroWalk/AccWalk/
+    Frequency) and the body-camera extrinsic Tbc."""
     noise_gyro: float = 1.7e-4
     noise_acc: float = 2e-3
     gyro_walk: float = 1.9e-5
@@ -80,8 +80,10 @@ class ImuSettings:
     T_cb: tuple = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
     def calib(self):
-        raise NotImplementedError("IMU calibration and the inertial modes are not ported yet "
-                                  "(ROADMAP item 13b)")
+        from ..geometry.imu import ImuCalib
+
+        return ImuCalib.create(self.noise_gyro, self.noise_acc, self.gyro_walk, self.acc_walk,
+                               self.frequency)
 
 
 @dataclasses.dataclass

@@ -153,3 +153,57 @@ def smooth_trajectory(n_frames: int, lateral=2.5, forward=1.0, yaw=0.15,
         c = torch.tensor([cx, cy, cz], dtype=torch.float32)
         poses.append(lie.se3_inv(torch.cat([q, c])).numpy())
     return poses
+
+
+def vi_trajectory(n_frames: int, fps: float = 10.0, imu_rate: float = 100.0, lateral=2.0,
+                  forward=0.5, yaw=0.08, z_amp=0.1, g=(0.0, 0.0, -9.81)):
+    """An analytic camera (= body) trajectory with exact IMU samples: the
+    continuous-time `smooth_trajectory` sampled at the camera rate, and for
+    each frame the IMU chunk (acc, gyro, dts) covering (t_{i-1}, t_i],
+    derived from the same pose function by central differences in f64 (the
+    rotations through the f32 Lie functions, as the reference's).
+
+    Returns (poses_T_cw [N] of numpy [7], imu_chunks [N] of (acc [M,3],
+    gyro [M,3], dts [M]) with chunk 0 empty, vel_w [N,3])."""
+    g = np.asarray(g, np.float64)
+    T_total = (n_frames - 1) / fps
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+
+    def center(t):
+        s = t / max(T_total, 1e-9)
+        return np.array([lateral * np.sin(s * np.pi), z_amp * np.sin(4 * np.pi * s),
+                         forward * s], np.float64)
+
+    def rot_wc(t):   # body (= camera) -> world
+        s = t / max(T_total, 1e-9)
+        return np.asarray(lie.quat_to_matrix(lie.so3_exp(f32([0.0, yaw * np.sin(s * np.pi), 0.0]))),
+                          np.float64)
+
+    eps = 1e-4
+
+    def vel(t):
+        return (center(t + eps) - center(t - eps)) / (2 * eps)
+
+    def acc_w(t):
+        return (vel(t + eps) - vel(t - eps)) / (2 * eps)
+
+    poses, chunks, vels = [], [], []
+    dti = 1.0 / imu_rate
+    for i in range(n_frames):
+        t = i / fps
+        q = lie.quat_from_matrix(f32(rot_wc(t)))
+        poses.append(lie.se3_inv(torch.cat([q, f32(center(t))])).numpy())
+        vels.append(vel(t).astype(np.float32))
+        if i == 0:
+            chunks.append((np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+                           np.zeros((0,), np.float32)))
+            continue
+        tt = np.arange(t - 1.0 / fps, t - 1e-9, dti)
+        accs, gyrs = [], []
+        for tk in tt:
+            R0, R1 = rot_wc(tk), rot_wc(tk + dti)
+            w = np.asarray(lie.so3_log(lie.quat_from_matrix(f32(R0.T @ R1)))) / dti
+            accs.append((R0.T @ (acc_w(tk) - g)).astype(np.float32))
+            gyrs.append(w.astype(np.float32))
+        chunks.append((np.stack(accs), np.stack(gyrs), np.full(len(tt), dti, np.float32)))
+    return poses, chunks, np.stack(vels)

@@ -8,8 +8,9 @@ pin of a monocular window, or a stereo / RGB-D map's disparity rows and one
 anchor), `_mapper_step` / `_mapper_chain`, the visual part of the host
 `LocalMapper`, the post-merge `global_ba` with `apply_gba_correction`, and
 `local_ba_batched` (B monocular maps' windows in one solve, the agents'
-batch axis of `parallel/multi_agent.py`). The inertial stages wait for
-ROADMAP item 13b.
+batch axis of `parallel/multi_agent.py`), and the inertial stages of
+`LocalMapper` (IMU initialization, scale refinement, the VI local BA of
+`vi_ba.py`).
 
 Three rules keep the outputs equal to the reference's:
 
@@ -24,13 +25,15 @@ Three rules keep the outputs equal to the reference's:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..geometry import lie
+from ..geometry import imu, lie
 from ..geometry import triangulation as tri
+from ..loopclosing import merge as merge_mod
 from ..ops import matching
 from ..ops.fast import _top_k
-from . import ba, map_state
+from . import ba, map_state, vi_ba
 
 
 def _level_scales(n_levels: int, scale_factor: float, device):
@@ -574,32 +577,158 @@ def _mapper_chain(m, c, K, *, n_neighbors: int, n_levels: int, scale_factor: flo
 class LocalMapper:
     """Host side of the mapping pipeline, the reference's LocalMapping
     thread as synchronous calls: the initial map's BA, then the
-    per-keyframe chain. Visual only; the inertial stages are ROADMAP item 13b."""
+    per-keyframe chain; for an inertial tracker the IMU initialization
+    (`LocalMapping.cc:1174`), the scale refinement (`:1413`) and, once the
+    IMU is initialized, the visual-inertial local BA in place of the
+    visual one."""
 
     def __init__(self, n_neighbors=5, ba_local=16, ba_fixed=16, ba_pts=4096,
-                 ba_iters=8, run_ba_every=1):
+                 ba_iters=8, run_ba_every=1, imu_init_kfs=8, imu_init_min_time=2.0,
+                 vi_window=10):
         self.n_neighbors = n_neighbors
         self.ba_local = ba_local
         self.ba_fixed = ba_fixed
         self.ba_pts = ba_pts
         self.ba_iters = ba_iters
         self.run_ba_every = run_ba_every
+        self.imu_init_kfs = imu_init_kfs
+        self.imu_init_min_time = imu_init_min_time
+        self.vi_window = vi_window
+        self._kfs_at_init = 0
+        self._scale_refinements = 0
         self._kf_count = 0
 
+    # -- visual-inertial stages (`LocalMapping.cc:199-256,1174,1413`) ------
+
+    def _chain_arrays(self, tracker, slots):
+        """The inertial states and preintegrations of a slot chain: (T_bw
+        [L,7], v [L,3], pres stacked [L-1], valid [L-1] bool numpy)."""
+        m = tracker.map
+        dev = tracker.device
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        T_bw = lie.se3_mul(lie.se3_inv(tracker.T_cb)[None], m.kf_pose[idx])
+        v = torch.as_tensor(np.stack([np.asarray(tracker.kf_vel.get(s, np.zeros(3)), np.float32)
+                                      for s in slots]), device=dev)
+        pres, valid = [], []
+        for s in slots[1:]:
+            pre = tracker.kf_preint.get(s)
+            valid.append(pre is not None)
+            pres.append(imu.create_preintegrated(device=dev) if pre is None else pre)
+        return T_bw, v, imu.stack(pres), np.asarray(valid)
+
+    def _rebase(self, tracker, slots, g_w, s: float, vels):
+        """Re-base the map and the tracker by S = (R, 0, s), R taking the
+        estimated gravity g_w to (0, 0, -g) (ApplyScaledRotation): gravity
+        becomes canonical and the map metric; the chain's estimated
+        velocities `vels` [L,3] rotate into the new frame."""
+        Rq = vi_ba.gravity_alignment_rotation(g_w)
+        S = torch.cat([Rq, torch.zeros(3, dtype=Rq.dtype, device=Rq.device),
+                       torch.tensor([s], dtype=Rq.dtype, device=Rq.device)])
+        tracker.map = merge_mod.transform_map(tracker.map, S)
+        tracker.apply_world_sim3(S)
+        R = lie.quat_to_matrix(Rq).cpu().numpy()
+        vels = vels.cpu().numpy()
+        for i, sl in enumerate(slots):
+            tracker.kf_vel[sl] = (R @ vels[i]).astype(np.float32)
+        tracker.vel_w = tracker.kf_vel[slots[-1]]
+
     def initialize_imu(self, tracker):
-        raise NotImplementedError("IMU initialization is not ported yet (ROADMAP item 13b)")
+        """`LocalMapping::InitializeIMU`: the gyro bias from rotation
+        alignment, then gravity, metric scale and velocities from the linear
+        system; re-base the map by them and finish with a VI BA over the
+        whole chain (VIBA1/VIBA2). A depth sensor's map is metric: its scale
+        must agree within [0.80, 1.25] and stays 1. Returns True on
+        success."""
+        slots = list(tracker.kf_chain)
+        T_bw, _, pres, pre_valid = self._chain_arrays(tracker, slots)
+        if not pre_valid.all():
+            return False
+        bg = vi_ba.estimate_gyro_bias(T_bw, pres)
+        s, g_w, vels = vi_ba.estimate_gravity_scale(T_bw, None, pres, bias_g=bg)
+        s = float(s)
+        g_ok = bool(np.isfinite(g_w.cpu().numpy()).all())
+        if tracker.config.depth_sensor:
+            if not (0.80 < s < 1.25) or not g_ok:
+                return False
+            s = 1.0
+        elif not (0.02 < s < 50.0) or not g_ok:
+            return False
+        self._rebase(tracker, slots, g_w, s, vels)
+        tracker.bias_g = bg.cpu().numpy().astype(np.float32)
+        for sl in slots:   # the chain keyframes carry the estimated bias now
+            tracker.kf_bias[sl] = (tracker.bias_g.copy(), tracker.bias_a.copy())
+        tracker.imu_initialized = True
+        tracker.map = self._vi_local_ba(tracker, slots[-1], window=len(slots))
+        tracker.last_pose = tracker.map.kf_pose[slots[-1]]
+        return True
 
     def refine_scale(self, tracker):
-        raise NotImplementedError("inertial scale refinement is not ported yet (ROADMAP item 13b)")
+        """`LocalMapping::ScaleRefinement`: re-estimate the residual scale
+        and gravity on the current chain and re-base by them when in
+        (0.5, 2.0). A depth sensor never rescales."""
+        if tracker.config.depth_sensor:
+            return False
+        slots = list(tracker.kf_chain)
+        if len(slots) < 4 or not all(s in tracker.kf_preint for s in slots[1:]):
+            return False
+        T_bw, _, pres, pre_valid = self._chain_arrays(tracker, slots)
+        if not pre_valid.all():
+            return False
+        s, g_w, vels = vi_ba.estimate_gravity_scale(T_bw, None, pres,
+                                                    bias_g=tracker._mirror(tracker.bias_g))
+        s = float(s)
+        self._scale_refinements += 1
+        if not (0.5 < s < 2.0) or not np.isfinite(g_w.cpu().numpy()).all():
+            return False
+        self._rebase(tracker, slots, g_w, s, vels)
+        return True
 
     def _vi_local_ba(self, tracker, center_slot, window=None):
-        raise NotImplementedError("visual-inertial BA is not ported yet (ROADMAP item 13b)")
+        """`Optimizer::LocalInertialBA`: the joint VI BA over the newest
+        `window` chain keyframes; the oldest one's pose is the gauge (its
+        velocity and biases stay free). Returns the map; the tracker's
+        velocity and bias mirrors and per-keyframe states are updated."""
+        m = tracker.map
+        fc = tracker.config.frontend
+        dev = tracker.device
+        slots = list(tracker.kf_chain)[-(window or self.vi_window):]
+        if len(slots) < 2:
+            return m
+        T_bw, v0, pres, pre_valid = self._chain_arrays(tracker, slots)
+        L = len(slots)
+        win = vi_ba.ViWindow(T_bw=T_bw, v=v0,
+                             bg=tracker._mirror(np.tile(tracker.bias_g, (L, 1))),
+                             ba=tracker._mirror(np.tile(tracker.bias_a, (L, 1))))
+        fixed = torch.zeros(L, dtype=torch.bool, device=dev)
+        fixed[0] = True
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        sigma2_lv = _level_scales(fc.n_levels, fc.scale_factor, dev) ** 2
+        obs = m.kf_obs[idx]
+        obs_pt = torch.where((obs >= 0) & m.pt_valid[torch.clamp(obs, min=0).to(torch.int64)],
+                             obs, -1)
+        w2, pts2, _ = vi_ba.vi_bundle_adjust(
+            win, fixed, m.kf_xy[idx], sigma2_lv[m.kf_level[idx].to(torch.int64)], obs_pt,
+            m.pt_pos, m.pt_valid, tracker.K, tracker.T_cb, pres,
+            torch.as_tensor(pre_valid, device=dev), iters=self.ba_iters)
+        T_cw_new = lie.se3_mul(tracker.T_cb[None], w2.T_bw)
+        kf_pose = m.kf_pose.clone()
+        kf_pose[idx[1:]] = T_cw_new[1:]
+        pt_pos = torch.where(m.pt_valid[:, None], pts2, m.pt_pos)
+        st = torch.cat([w2.v, w2.bg, w2.ba], dim=1).cpu().numpy()
+        for i, sl in enumerate(slots):
+            tracker.kf_vel[sl] = st[i, 0:3].copy()
+            tracker.kf_bias[sl] = (st[i, 3:6].copy(), st[i, 6:9].copy())
+        tracker.vel_w = st[-1, 0:3].copy()
+        tracker.bias_g = st[-1, 3:6].copy()
+        tracker.bias_a = st[-1, 6:9].copy()
+        return m._replace(kf_pose=kf_pose, pt_pos=pt_pos)
 
     def on_initial_map(self, tracker):
         """BA of the two-keyframe initial map (4 local, 4 fixed rows, 16
         iterations), then the point statistics. A depth sensor's initial map
         is one keyframe at identity with metric points: nothing to adjust."""
         if tracker.n_kf_host < 2:
+            self._kfs_at_init = 1
             return
         fc = tracker.config.frontend
         m, _ = local_ba(tracker.map, 1, tracker.K, n_local=4, n_fixed=4, n_pts=self.ba_pts,
@@ -609,17 +738,45 @@ class LocalMapper:
 
     def on_new_keyframe(self, tracker, slot: int):
         """The per-keyframe chain (cull, triangulate, fuse, point stats,
-        windowed BA every `run_ba_every` keyframes) around `slot`."""
+        windowed BA every `run_ba_every` keyframes) around `slot`. With an
+        initialized IMU the VI local BA replaces the visual one
+        (`LocalMapping.cc:167-175`); before it, the IMU-initialization
+        schedule, after it at most three scale refinements."""
         fc = tracker.config.frontend
         self._kf_count += 1
         run_ba = self._kf_count % self.run_ba_every == 0
         c = torch.as_tensor(slot, dtype=torch.int32, device=tracker.K.device)
-        bf = tracker.fx * tracker.config.baseline if tracker.config.depth_sensor else None
-        m = _mapper_step(tracker.map, c, tracker.K, n_neighbors=self.n_neighbors,
-                         n_levels=fc.n_levels, scale_factor=fc.scale_factor, run_ba=run_ba,
-                         ba_local=self.ba_local, ba_fixed=self.ba_fixed, ba_pts=self.ba_pts,
-                         ba_iters=self.ba_iters, bf=bf, use_kernel=fc.use_kernel)
+        inertial_live = tracker.inertial and tracker.imu_initialized
+        if run_ba and inertial_live:
+            m = _mapper_step(tracker.map, c, tracker.K, n_neighbors=self.n_neighbors,
+                             n_levels=fc.n_levels, scale_factor=fc.scale_factor, run_ba=False)
+            tracker.map = m
+            m = self._vi_local_ba(tracker, slot)
+            m = map_state.update_point_stats(m, fc.n_levels, fc.scale_factor, with_desc=False)
+        else:
+            bf = tracker.fx * tracker.config.baseline if tracker.config.depth_sensor else None
+            m = _mapper_step(tracker.map, c, tracker.K, n_neighbors=self.n_neighbors,
+                             n_levels=fc.n_levels, scale_factor=fc.scale_factor, run_ba=run_ba,
+                             ba_local=self.ba_local, ba_fixed=self.ba_fixed,
+                             ba_pts=self.ba_pts, ba_iters=self.ba_iters, bf=bf,
+                             use_kernel=fc.use_kernel)
         tracker.map = m
         tracker.last_pose = m.kf_pose[slot]
+        if tracker.inertial and not tracker.imu_initialized:
+            # enough keyframes, or at least 4 spanning >= 2 s (mTinit)
+            chain = tracker.kf_chain
+            span = 0.0
+            if len(chain) >= 2:
+                ts = tracker.kf_timestamps
+                span = ts.get(chain[-1], 0.0) - ts.get(chain[0], 0.0)
+            ready = (len(chain) >= self.imu_init_kfs
+                     or (len(chain) >= 4 and span >= self.imu_init_min_time))
+            if ready and all(s in tracker.kf_preint for s in chain[1:]):
+                if self.initialize_imu(tracker):
+                    self._kfs_at_init = len(tracker.kf_chain)
+        elif tracker.inertial:
+            grown = len(tracker.kf_chain) - self._kfs_at_init
+            if self._scale_refinements < 3 and grown >= 4 * (self._scale_refinements + 1):
+                self.refine_scale(tracker)
         # uuids of the new points are assigned lazily (`tracker.flush_meta`)
         tracker.meta_dirty = True

@@ -1,6 +1,6 @@
 """System facade: the `ORB_SLAM3::System` API for single-agent use.
 
-Port of `dvm_slam_tpu/models/system.py` for the visual sensors:
+Port of `dvm_slam_tpu/models/system.py`:
 
     sys = System(settings, device="cuda")                 # monocular
     for ts, img in sequence:
@@ -11,16 +11,22 @@ Port of `dvm_slam_tpu/models/system.py` for the visual sensors:
 rectified pair and `System(settings, sensor="rgbd").track_rgbd(img, depth,
 ts)` an image and its registered depth in sensor units (scaled by
 `camera.depth_map_factor`); both need `camera.baseline` (the reference's
-`Camera.bf` / fx). A KB8 fisheye comes through `camera.model: kb8`.
+`Camera.bf` / fx). A KB8 fisheye comes through `camera.model: kb8`. The
+IMU modes (`sensor="imu-monocular"|"imu-stereo"|"imu-rgbd"`) take the IMU
+samples since the previous frame with each frame: `track_monocular_inertial
+(img, ts, acc, gyro, dts)`, `track_stereo_inertial` and `track_rgbd_inertial`
+(`settings.imu`: noise, walk, rate and the camera-from-body `T_cb`); they
+track on the pipelined VI lane and `is_imu_initialized` says when gravity,
+velocities and (monocular) the metric scale are known.
 
 With `vocabulary_file` (e.g. `data/voc_default.npz`) the tracker gets
 relocalization and the multi-map atlas: a new map on persistent LOST and the
 merge-back into a stored map on a later keyframe.
 
 `serialize_map` gives the map packet of the multi-agent wire, and
-`save_atlas`/`load_atlas` a checkpoint in the JAX package's format. Paths
-that need modules not ported yet raise `NotImplementedError` naming their
-ROADMAP item: the inertial sensor modes (13b) and the viewer (14).
+`save_atlas`/`load_atlas` a checkpoint in the JAX package's format. The
+viewer is not ported yet and raises `NotImplementedError` naming ROADMAP
+item 14.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ def _not_ported(what: str, items: str):
 
 
 class System:
-    """One SLAM agent on `device` with a monocular, stereo or RGB-D camera.
+    """One SLAM agent on `device` with a monocular, stereo or RGB-D camera,
+    with or without an IMU.
     `use_kernel` picks the hand-written kernels (None: on CUDA tensors;
     False: the plain versions), as `FrontendConfig.use_kernel` does."""
 
@@ -68,8 +75,6 @@ class System:
                  device="cuda", use_kernel: Optional[bool] = None):
         if sensor not in _SENSORS:
             raise NotImplementedError(f"unknown sensor mode {sensor!r}; supported: {_SENSORS}")
-        if sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
-            raise _not_ported(f"sensor mode {sensor!r}", "13b")
         if use_viewer:
             raise _not_ported("the viewer", "14")
         if isinstance(settings, str):
@@ -79,38 +84,46 @@ class System:
         self.agent_id = agent_id
         self.device = torch.device(device)
         cfg = settings.tracker_config(use_kernel)
-        if sensor in (STEREO, RGBD):
+        if sensor in (STEREO, RGBD, IMU_STEREO, IMU_RGBD):
             if settings.camera.baseline <= 0.0:
                 raise ValueError("a stereo or RGB-D sensor needs camera.baseline (or the "
                                  "reference's Camera.bf) in the settings")
-            cfg = dataclasses.replace(cfg, sensor=sensor)
+            cfg = dataclasses.replace(cfg, sensor=STEREO if sensor in (STEREO, IMU_STEREO)
+                                      else RGBD)
         self.mapper = local_mapping.LocalMapper()
+        inertial = sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD)
         self.tracker = trk.MonocularTracker(
             cfg, settings.camera.K(),
             np.asarray(settings.camera.dist, np.float32), local_mapper=self.mapper,
-            rng_seed=agent_id, device=self.device)
+            rng_seed=agent_id, inertial=inertial,
+            imu_calib=settings.imu.calib() if inertial else None,
+            T_cb=np.asarray(settings.imu.T_cb, np.float32) if inertial else None,
+            device=self.device)
         self.tracker.meta.agent_id = agent_id
         self.voc = vocabulary.load(vocabulary_file) if vocabulary_file else None
         if self.voc is not None:
             # relocalization and the multi-submap atlas (a new map on
             # persistent LOST, merge-back); a monocular map's scale is free,
-            # a depth sensor's is fixed
+            # a depth sensor's or an IMU's is fixed
             fc = settings.frontend_config(use_kernel)
             self.tracker.relocalizer = relocalization.RelocalizationService(
                 self.voc, settings.camera.K(), fc.sigma2, kf_cap=settings.kf_capacity,
                 device=self.device)
             self.tracker.atlas = atlas_mod.Atlas(self.voc, settings.camera.K(), fc,
-                                                 agent_id=agent_id, fix_scale=cfg.depth_sensor,
+                                                 agent_id=agent_id,
+                                                 fix_scale=cfg.depth_sensor or inertial,
                                                  device=self.device)
         if settings.load_atlas_from_file:
             self.load_atlas(settings.load_atlas_from_file)
         # the tracking/mapping overlap: the tracker enters the autonomous
         # lane by itself once initialization is OK (monocular frames); stereo
-        # and RGB-D frames take the pipelined lane, async_depth frames deep
+        # and RGB-D frames take the pipelined lane, async_depth frames deep,
+        # and inertial frames the pipelined VI lane
         if settings.autonomous:
-            self.tracker.auto_mode = True
-            self.tracker.auto_batch = int(settings.auto_batch)
             self.tracker.async_depth = int(settings.async_depth)
+            if not inertial:
+                self.tracker.auto_mode = True
+                self.tracker.auto_batch = int(settings.auto_batch)
 
     # -- tracking -------------------------------------------------------
 
@@ -133,6 +146,27 @@ class System:
         return self.tracker.process_rgbd(self._prep(img),
                                          depth * self.settings.camera.depth_map_factor,
                                          timestamp)
+
+    def track_monocular_inertial(self, img, timestamp: float, acc, gyro, dts):
+        """`System::TrackMonocular` with the IMU samples since the previous
+        frame (IMU_MONOCULAR): acc [M,3] m/s^2, gyro [M,3] rad/s, dts [M] s."""
+        self.tracker.grab_imu(acc, gyro, dts)
+        return self.track_monocular(img, timestamp)
+
+    def track_stereo_inertial(self, img_left, img_right, timestamp: float, acc, gyro, dts):
+        """`System::TrackStereo` with the IMU samples (IMU_STEREO): the map is
+        metric from the stereo depth, the IMU initialization estimates
+        gravity, velocities and biases at fixed scale."""
+        self.tracker.grab_imu(acc, gyro, dts)
+        return self.track_stereo(img_left, img_right, timestamp)
+
+    def track_rgbd_inertial(self, img, depth_map, timestamp: float, acc, gyro, dts):
+        """`System::TrackRGBD` with the IMU samples (IMU_RGBD)."""
+        self.tracker.grab_imu(acc, gyro, dts)
+        return self.track_rgbd(img, depth_map, timestamp)
+
+    def is_imu_initialized(self):
+        return self.tracker.imu_initialized
 
     def _prep(self, img):
         """The image on the device as f32 gray; a resize to the settings'

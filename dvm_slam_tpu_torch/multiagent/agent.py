@@ -72,10 +72,6 @@ SCALE_HYPOTHESES = 500             # ransacPointSetAlignment's iterations
 _BOW_NZ = 1024
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 def _record_event(device):
     """A CUDA event recorded behind the work dispatched so far, or None on
     the CPU (where the work is done when the call returns)."""
@@ -510,6 +506,13 @@ class SlamAgent:
                 with_scale=not self.config.depth_sensor)
             if not bool(res.ok):
                 continue
+            if self.tracker.inertial and self.tracker.imu_initialized:
+                # an inertial map is metric: a scale outside [0.90, 1.1] is
+                # rejected (`LoopClosing.cc:151`)
+                sc = float(res.S_ab[7])
+                if not (0.90 <= sc <= 1.1):
+                    self.log.append(("merge_scale_rejected", peer_id, sc))
+                    continue
             self._do_merge(peer_id, mB, metaB, res.S_ab, kfA)
             return True
         self.log.append(("merge_failed", peer_id, tried))
@@ -519,10 +522,9 @@ class SlamAgent:
         """Splice the foreign map in; the merged group's frame is the lower
         agent id's world (`System.cc:1392-1421`). If the peer has the lower
         id, re-base the whole map into its frame first and announce the
-        frame change to the current group (`:920-999`)."""
-        if self.tracker.inertial:
-            raise _not_ported("the inertial merge's joint visual-inertial BA (MergeInertialBA)",
-                              "13b")
+        frame change to the current group (`:920-999`). An IMU-initialized
+        tracker welds with the joint visual-inertial BA over its own chain
+        (MergeInertialBA), the others with the visual window BA."""
         fc = self.config.frontend
         K = self.tracker.K
         t_merge0 = time.perf_counter()
@@ -540,9 +542,20 @@ class SlamAgent:
         weld = torch.tensor(weld_kf, dtype=torch.int32, device=self.device)
         merged = local_mapping.fuse_duplicates(merged, weld, K, n_neighbors=5,
                                                n_levels=fc.n_levels, scale_factor=fc.scale_factor)
-        merged, _ = local_mapping.local_ba(
-            merged, weld, K, n_local=12, n_fixed=8, n_pts=2048, iters=6, n_levels=fc.n_levels,
-            scale_factor=fc.scale_factor, use_kernel=fc.use_kernel)
+        mapper = self.tracker.local_mapper
+        if (self.tracker.inertial and self.tracker.imu_initialized and mapper is not None
+                and len(self.tracker.kf_chain) >= 2):
+            # MergeInertialBA (`Optimizer.cc:3676`, from MergeLocal2,
+            # `LoopClosing.cc:1811`): the own chain's poses, velocities and
+            # biases re-estimated against the welded geometry
+            saved = self.tracker.map
+            self.tracker.map = merged
+            merged = mapper._vi_local_ba(self.tracker, weld_kf)
+            self.tracker.map = saved
+        else:
+            merged, _ = local_mapping.local_ba(
+                merged, weld, K, n_local=12, n_fixed=8, n_pts=2048, iters=6,
+                n_levels=fc.n_levels, scale_factor=fc.scale_factor, use_kernel=fc.use_kernel)
         if self.post_merge_pose_graph:
             merged = self._run_pose_graph(merged, weld_kf, poses_pre)
         self.tracker.map = merged

@@ -129,3 +129,86 @@ def pose_optimization(T_init, pts, uv, sigma2, valid, K,
     chi2, z = chi2_of(T)
     inliers = valid & (chi2 <= chi2_th) & (z > 0)
     return T, inliers, chi2
+
+
+def _proj_residual(T, pts, uv, K):
+    """r = uv - pi(T X) [...,N,2] and depth z [...,N] for poses T [...,7]."""
+    pc = lie.quat_rotate(lie.se3_q(T)[..., None, :], pts) + lie.se3_t(T)[..., None, :]
+    z = pc[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    pred = torch.stack([K[0] * pc[..., 0] * inv_z + K[2], K[1] * pc[..., 1] * inv_z + K[3]], -1)
+    return uv - pred, z
+
+
+def pose_inertial_optimization(T_bw_init, v_init, bg_init, ba_init, T_bw_anchor, v_anchor,
+                               bg_anchor, ba_anchor, pre, pts, uv, sigma2, valid, K, T_cb,
+                               gravity, rounds: int = 4, iters: int = 6,
+                               damping: float = 1e-3):
+    """Per-frame pose-inertial optimization
+    (`Optimizer::PoseInertialOptimizationLastKeyFrame`, `Optimizer.cc:4181`):
+    one 15-dof state (pose tangent 6, velocity 3, gyro bias 3, accel bias
+    3) against (a) the reprojection residuals with Huber and chi2(2 dof)
+    reclassification over `rounds` rounds of `iters` Gauss-Newton
+    iterations, (b) the 9-dof preintegration edge from the fixed anchor
+    keyframe `pre` describes, whitened by the inverse Cholesky factor of
+    its covariance, (c) bias random walks to the anchor biases, whitened by
+    the walk blocks. The Jacobian of the whole [2N+15] residual is forward
+    mode (`inertial.jacfwd`); the damping decays x0.3 per iteration.
+    T_bw_* are world->body; T_cb camera-from-body. Returns (T_bw, v, bg, ba,
+    inliers [N] bool, chi2_vis [N])."""
+    from ..mapping.inertial import jacfwd
+    from ..mapping.vi_ba import inertial_edge_residual, whiten
+
+    dtype, dev = T_bw_init.dtype, T_bw_init.device
+    info = 1.0 / torch.clamp(sigma2, min=1e-12)
+    W9 = whiten(pre.C[:9, :9].to(dtype), 1e-8)
+    Wg = whiten(pre.C[9:12, 9:12].to(dtype), 1e-12)
+    Wa = whiten(pre.C[12:15, 12:15].to(dtype), 1e-12)
+    g = torch.as_tensor(gravity, dtype=dtype).to(dev)
+    eye = torch.eye(15, dtype=dtype, device=dev)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
+
+    def vis_chi2(T_bw):
+        r, z = _proj_residual(lie.se3_mul(T_cb, T_bw), pts, uv, K)
+        return torch.sum(r * r, dim=-1) * info, z
+
+    def retract(state, dx):
+        T_bw, v, bg, ba = state
+        return (lie.se3_retract(T_bw, dx[..., :6]), v + dx[..., 6:9], bg + dx[..., 9:12],
+                ba + dx[..., 12:15])
+
+    def residual_vec(state, sw):
+        """The stacked whitened residual [...,2N+15]; sw holds the square
+        roots of this iteration's frozen robust weights."""
+        T_bw, v, bg, ba = state
+        r, _ = _proj_residual(lie.se3_mul(T_cb, T_bw), pts, uv, K)
+        r_v = (r * sw[:, None]).reshape(r.shape[:-2] + (-1,))
+        r_i = mv(W9, inertial_edge_residual(T_bw_anchor, v_anchor, bg, ba, T_bw, v, pre, g))
+        r_b = torch.cat([mv(Wg, bg - bg_anchor), mv(Wa, ba - ba_anchor)], dim=-1)
+        return torch.cat([r_v, r_i, r_b], dim=-1)
+
+    def gn_round(state, active):
+        for i in range(iters):
+            chi2, z = vis_chi2(state[0])
+            rn = torch.sqrt(torch.clamp(chi2, min=1e-12))
+            w = info * torch.clamp(HUBER_DELTA / rn, max=1.0) * active * (z > 0)
+            sw = torch.sqrt(w)
+            st = state
+            r0, J = jacfwd(lambda dx: residual_vec(retract(st, dx), sw), 15, dtype, dev)
+            H = J.T @ J
+            b = J.T @ r0
+            H = H + (damping * 0.3 ** i) * eye * (1.0 + torch.trace(H) / 15.0)
+            dx = torch.linalg.solve_ex(H, -b)[0]
+            dx = torch.where(torch.all(torch.isfinite(dx)), dx, torch.zeros_like(dx))
+            state = retract(state, dx)
+        return state
+
+    state = (T_bw_init, v_init, bg_init, ba_init)
+    active = valid.to(dtype)
+    for _ in range(rounds):
+        state = gn_round(state, active)
+        chi2, z = vis_chi2(state[0])
+        active = (valid & (chi2 <= CHI2_MONO) & (z > 0)).to(dtype)
+    chi2, z = vis_chi2(state[0])
+    inliers = valid & (chi2 <= CHI2_MONO) & (z > 0)
+    return state[0], state[1], state[2], state[3], inliers, chi2

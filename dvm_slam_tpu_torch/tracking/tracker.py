@@ -5,12 +5,13 @@ and, for a new keyframe, the mapper chain with windowed BA.
 Port of `dvm_slam_tpu/tracking/tracker.py`: the device step
 (`project_points`, `track_frame`, `make_and_track`, `update_visibility`,
 `create_points_from_depth`, `autonomous_step`, `autonomous_step_batch`) and
-the host state machine `MonocularTracker` for the visual sensors (a
-monocular pinhole or KB8 fisheye camera, a rectified stereo pair, an RGB-D
-camera): two-view or single-frame depth initialization, motion-model
-tracking with the stereo residual rows, the keyframe decision, the
-pipelined lane, the autonomous lane, relocalization and the multi-map
-atlas. Two helpers come from the
+the host state machine `MonocularTracker` for every sensor (a monocular
+pinhole or KB8 fisheye camera, a rectified stereo pair, an RGB-D camera,
+each with or without an IMU): two-view or single-frame depth
+initialization, motion-model or IMU-predicted tracking with the stereo
+residual rows, the pose-inertial refinement, the keyframe decision, the
+pipelined lanes (visual and visual-inertial), the autonomous lane,
+relocalization and the multi-map atlas. Two helpers come from the
 reference's host code: `bootstrap_from_depth` (the map seeding of
 `_try_initialize_depth`) and `motion_model_step` (the pose chain of
 `autonomous_step`). `autonomous_step_batch` returns the reference's packed
@@ -33,7 +34,7 @@ import torch
 
 from ..frontend.extractor import (Frame, FrontendConfig, make_frame, make_frame_rgbd,
                                   make_frame_stereo)
-from ..geometry import cameras, lie, two_view
+from ..geometry import cameras, imu, lie, two_view
 from ..mapping import local_mapping, map_state
 from ..ops import matching
 from . import pose_opt
@@ -368,10 +369,6 @@ class _HostCopy:
         return self.host.numpy()
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 class MonocularTracker:
     """Host state machine around the tracking step (`Tracking::Track`):
     monocular two-view initialization (a stereo or RGB-D frame initializes
@@ -383,8 +380,18 @@ class MonocularTracker:
     come through `process_stereo_pair` / `process_rgbd` and take the host or
     the pipelined lane, as in the reference.
 
-    Visual sensors only (`config.sensor` monocular, stereo or rgbd; a
-    pinhole or a KB8 camera). Every tensor lives on `device`. The two RANSAC
+    `config.sensor` is monocular, stereo or rgbd (a pinhole or a KB8
+    camera); `inertial=True` adds an IMU (`grab_imu` before each frame,
+    `imu_calib` its noise, `T_cb` the camera-from-body extrinsic): the
+    keyframe chain carries preintegrations, velocities and biases, the
+    mapper initializes the IMU, and frames after it are predicted by dead
+    reckoning and refined by `pose_inertial_optimization`. Inertial frames
+    take the host lane or, with `async_depth` > 0, the pipelined VI lane,
+    never the autonomous or the visual pipelined lane; that lane runs the
+    pose-inertial refinement only on the weak frames whose result it takes
+    (the reference runs it on every frame and selects on the device). Every
+    tensor lives on `device`; the velocity and bias mirrors are host numpy.
+    The two RANSAC
     samplers draw from a `torch.Generator` on the CPU seeded with `rng_seed`
     (`_ransac_noise`), so the card and the CPU see the same draws; keyframe
     and point uuids come from a numpy generator with the same seed.
@@ -405,14 +412,27 @@ class MonocularTracker:
     def __init__(self, config: TrackerConfig, K, dist, local_mapper=None, rng_seed=0,
                  relocalizer=None, inertial=False, imu_calib=None, T_cb=None,
                  device="cuda"):
-        if inertial:
-            raise _not_ported("the inertial tracker", "13b")
         self.device = torch.device(device)
         self.config = config
-        self.inertial = False    # the visual tracker only (the constructor refuses IMU)
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
         self.fx = float(np.asarray(K, np.float32)[0])   # for bf = fx * baseline, without a sync
         self.dist = torch.as_tensor(np.asarray(dist, np.float32), device=self.device)
+        # ---- visual-inertial state (Tracking.cc's IMU members)
+        self.inertial = inertial
+        self.imu_calib = imu_calib
+        self.T_cb = (lie.se3_identity(device=self.device) if T_cb is None
+                     else torch.as_tensor(np.asarray(T_cb, np.float32), device=self.device))
+        self.imu_initialized = False
+        self.vel_w = np.zeros(3, np.float32)    # body velocity (world)
+        self.bias_g = np.zeros(3, np.float32)
+        self.bias_a = np.zeros(3, np.float32)
+        self._imu_frame = []   # (acc, gyro, dts) chunks since the last frame
+        self._imu_kf = []      # chunks since the last keyframe
+        self._imu_seq = 0      # chunks ever grabbed (monotonic)
+        self.kf_chain = []     # keyframe slots in creation order
+        self.kf_preint = {}    # slot -> Preintegrated from the previous chain keyframe
+        self.kf_vel = {}       # slot -> body velocity [3] np
+        self.kf_bias = {}      # slot -> (bias_g, bias_a) np at creation
         self._last_good_ts = None
         self.map = map_state.create(config.kf_cap, config.pt_cap, config.frontend.capacity,
                                     device=self.device)
@@ -445,6 +465,17 @@ class MonocularTracker:
         # async_depth frames behind the dispatch
         self.async_depth = 0
         self._pipeline = []      # [(timestamp, frame, res, n_inliers copy)]
+        # the pipelined VI lane: velocity and biases ride the device chain
+        # like last_pose (None: re-seed from the host mirrors); VI records
+        # are (timestamp, frame, res, packed copy, grab counter)
+        self._vel_dev = None
+        self._bias_g_dev = None
+        self._bias_a_dev = None
+        self.n_vi_refines = 0    # pose-inertial refinements the VI lane ran
+        # bumped by apply_world_sim3: a retire that re-bases the world drops
+        # the in-flight records; the composed Sim3 transports the chain head
+        self._rebase_gen = 0
+        self._pending_rebase_S = None
         # autonomous lane (enter_autonomous): keyframe decision and mapper
         # chain inside the step; outcome rows retire up to async_depth late
         self.autonomous = False
@@ -499,26 +530,37 @@ class MonocularTracker:
             self.enter_autonomous()
         if self.autonomous:
             return self._process_autonomous(img, timestamp)
-        if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
-            # relocalize first: the motion model is stale after a loss. The
-            # frame is extracted once; on failure it is tracked as it is
+        if (self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None
+                and not (self.inertial and self.imu_initialized)):
+            # relocalize first: the motion model is stale after a loss (an
+            # initialized IMU dead-reckons instead). The frame is extracted
+            # once; on failure it is tracked as it is
             frame = make_frame(img, self.K, self.dist, self.config.frontend,
                                camera_model=self.config.camera_model)
             pose = self._try_relocalize(frame, timestamp)
             if pose is None:
                 T_pred, v_pred = self._predict_pose()
                 res = track_frame(self.map, frame, T_pred, self.K, self.config)
-                if self.async_depth > 0:
+                if self.async_depth > 0 and not self.inertial:
                     pose = self._pipeline_push(frame, timestamp, res)
                 else:
                     pose = self._track_resolve(frame, timestamp, T_pred, v_pred, res)
             if pose is not None:
                 self.trajectory.append((timestamp, pose, self.state))
             return pose
+        if self._vi_pipeline_active(timestamp):
+            # the IMU-predicted pose is part of the device chain: extraction
+            # is a call of its own here
+            frame = make_frame(img, self.K, self.dist, self.config.frontend,
+                               camera_model=self.config.camera_model)
+            pose = self._track_pipelined_vi(frame, timestamp)
+            if pose is not None:
+                self.trajectory.append((timestamp, pose, self.state))
+            return pose
         T_pred, v_pred = self._predict_pose()
         frame, res, pv, pf = make_and_track(img, self.map, T_pred, self.K, self.dist,
                                             self.config)
-        if self.async_depth > 0:
+        if self.async_depth > 0 and not self.inertial:
             # the pipelined retire applies incremental visibility updates
             pose = self._pipeline_push(frame, timestamp, res)
         else:
@@ -535,8 +577,10 @@ class MonocularTracker:
                 pose = self._try_initialize_depth(frame)
             else:
                 pose = self._try_initialize(frame)
-        elif self.async_depth > 0:
+        elif self.async_depth > 0 and not self.inertial:
             pose = self._track_pipelined(frame, timestamp)
+        elif self._vi_pipeline_active(timestamp):
+            pose = self._track_pipelined_vi(frame, timestamp)
         else:
             pose = self._track(frame, timestamp)
         if pose is not None:
@@ -562,8 +606,77 @@ class MonocularTracker:
     def _upload(self, img):
         return torch.as_tensor(img).to(self.device, torch.float32)
 
+    # -- visual-inertial input (Tracking::GrabImuData) ----------------------
+
     def grab_imu(self, acc, gyro, dts):
-        raise _not_ported("inertial tracking", "13b")
+        """Queue the IMU samples (acc [M,3] m/s^2, gyro [M,3] rad/s, dts [M]
+        s) that cover the span since the previous camera frame."""
+        acc = np.asarray(acc, np.float32).reshape(-1, 3)
+        if len(acc) == 0:
+            return
+        chunk = (acc, np.asarray(gyro, np.float32).reshape(-1, 3),
+                 np.asarray(dts, np.float32).reshape(-1))
+        self._imu_frame.append(chunk)
+        self._imu_kf.append(chunk)
+        self._imu_seq += 1   # anchors the pipelined VI lane's window splits
+
+    def process_image_inertial(self, img, timestamp, acc, gyro, dts):
+        """`System::TrackMonocular` with the IMU samples since the last frame."""
+        self.grab_imu(acc, gyro, dts)
+        return self.process_image(img, timestamp)
+
+    def process_stereo_inertial(self, img_l, img_r, timestamp, acc, gyro, dts):
+        """A stereo pair with the IMU samples since the last frame (IMU_STEREO)."""
+        self.grab_imu(acc, gyro, dts)
+        return self.process_stereo_pair(img_l, img_r, timestamp)
+
+    def process_rgbd_inertial(self, img, depth_map, timestamp, acc, gyro, dts):
+        """An RGB-D frame with the IMU samples since the last frame (IMU_RGBD)."""
+        self.grab_imu(acc, gyro, dts)
+        return self.process_rgbd(img, depth_map, timestamp)
+
+    def _cat_imu(self, chunks):
+        """Preintegrate the chunks under the current bias mirrors: one
+        upload of the samples and the biases, then the scan on the
+        device."""
+        acc = np.concatenate([c[0] for c in chunks])
+        n = len(acc)
+        buf = np.zeros((n + 1, 7), np.float32)
+        buf[:n, 0:3] = acc
+        buf[:n, 3:6] = np.concatenate([c[1] for c in chunks])
+        buf[:n, 6] = np.concatenate([c[2] for c in chunks])
+        buf[n, 0:3] = self.bias_g
+        buf[n, 3:6] = self.bias_a
+        b = torch.from_numpy(buf).to(self.device)
+        return imu.preintegrate(self.imu_calib, b[:n, 0:3], b[:n, 3:6], b[:n, 6],
+                                bias_g=b[n, 0:3], bias_a=b[n, 3:6])
+
+    def _body_state(self, T_cw):
+        """T_cw -> (R_wb [3,3], p_w [3]) through the body-camera extrinsic."""
+        T_bw = lie.se3_mul(lie.se3_inv(self.T_cb), T_cw)
+        R_wb = lie.quat_to_matrix(lie.se3_q(T_bw)).T
+        return R_wb, -(R_wb @ lie.se3_t(T_bw))
+
+    def _mirror(self, x):
+        return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+
+    def _dead_reckon(self, pre, T_cw, v_w, bg, ba):
+        """`predict_state` from the camera pose T_cw: (T_cw' [7], v' [3])."""
+        R_wb, p_w = self._body_state(T_cw)
+        R2, v2, p2 = imu.predict_state(pre, R_wb, v_w, p_w, bias_g=bg, bias_a=ba)
+        T_bw = lie.se3(lie.quat_from_matrix(R2.T), -(R2.T @ p2))
+        return lie.se3_mul(self.T_cb, T_bw), v2
+
+    def _imu_predict(self):
+        """`Tracking::PredictStateIMU` (`Tracking.cc:1564`): dead-reckon the
+        last pose through the samples since that frame. Returns (T_pred
+        [7], v_pred [3] np), or None without samples."""
+        if not self._imu_frame:
+            return None
+        pre = self._cat_imu(self._imu_frame)
+        T_pred, v2 = self._dead_reckon(pre, self.last_pose, self._mirror(self.vel_w),
+                                       pre.bias_g, pre.bias_a)
+        return T_pred, v2.cpu().numpy()
 
     # -- pipelined tracking (decisions run async_depth frames late) ---------
 
@@ -585,6 +698,8 @@ class MonocularTracker:
     def _retire_pipelined(self):
         """Resolve the oldest in-flight frame: lost handling, visibility
         counters, keyframe decision."""
+        if len(self._pipeline[0]) == 5:   # a VI record
+            return self._retire_vi(*self._pipeline.pop(0))
         ts, frame, res, n_copy = self._pipeline.pop(0)
         n_inl = int(n_copy.numpy())
         if n_inl < self.config.min_track_inliers:
@@ -618,13 +733,172 @@ class MonocularTracker:
         while self._pipeline:
             self._retire_pipelined()
 
+    # -- the pipelined visual-inertial lane ---------------------------------
+    #
+    # Pose, velocity and biases ride the device chain; the per-frame
+    # pose-inertial refinement runs on every frame with its inlier gate a
+    # selection on the device, and the host state machine retires records
+    # from one packed readback a frame ([10]: n_inliers | v | bg | ba).
+
+    def _vi_pipeline_active(self, timestamp: float) -> bool:
+        """Route a frame to the pipelined VI lane? OK frames always; an
+        IMU-initialized RECENTLY_LOST span (under 5 s) too, since the chain
+        dead-reckons through it and records are still in flight."""
+        if not (self.async_depth > 0 and self.inertial):
+            return False
+        if self.state == OK:
+            return True
+        return (self.state == RECENTLY_LOST and self.imu_initialized
+                and self._last_good_ts is not None and timestamp - self._last_good_ts < 5.0)
+
+    def _track_pipelined_vi(self, frame: Frame, timestamp: float):
+        if self._vel_dev is None:   # (re-)seed the device chain from the mirrors
+            self._vel_dev = self._mirror(self.vel_w)
+            self._bias_g_dev = self._mirror(self.bias_g)
+            self._bias_a_dev = self._mirror(self.bias_a)
+        # the prediction: dead-reckon the chained (in-flight) state
+        T_pred, v_pred = None, None
+        if self.imu_initialized and self._imu_frame:
+            pre_f = self._cat_imu(self._imu_frame)
+            T_pred, v_pred = self._dead_reckon(pre_f, self.last_pose, self._vel_dev,
+                                               self._bias_g_dev, self._bias_a_dev)
+        if T_pred is None:
+            T_pred = lie.se3_mul(self.velocity, self.last_pose)
+        self._imu_frame = []
+
+        res = track_frame(self.map, frame, T_pred, self.K, self.config)
+        n_inl = int(res.n_inliers)
+        ok = n_inl >= self.config.min_track_inliers
+        v_chain = self._vel_dev if v_pred is None else v_pred
+        bg_chain, ba_chain = self._bias_g_dev, self._bias_a_dev
+        # a bad frame: the chain dead-reckons through it
+        res = res._replace(T_cw=res.T_cw if ok else T_pred)
+        s = self.last_kf_slot
+        # PoseInertialOptimizationLastKeyFrame serves weak visual frames; a
+        # well-tracked frame keeps its visual solution. The reference always
+        # runs it and selects its outputs on the device; the port reads the
+        # inlier count (track_frame has synchronised already) and runs it
+        # only where its outputs are taken: the same results
+        weak = n_inl < 4 * self.config.min_track_inliers
+        if (ok and weak and self.imu_initialized and self._imu_kf and s is not None
+                and s >= 0):
+            self.n_vi_refines += 1
+            pre = self._cat_imu(self._imu_kf)
+            T_cb_inv = lie.se3_inv(self.T_cb)
+            T_bw0 = lie.se3_mul(T_cb_inv, res.T_cw)
+            T_bw_a = lie.se3_mul(T_cb_inv, self.map.kf_pose[s])
+            v_a = self._mirror(self.kf_vel.get(s, np.zeros(3, np.float32)))
+            # the random walk anchors at the keyframe's bias (stable between
+            # keyframes; the rolling mirror would 2-cycle through the lag)
+            bg_a, ba_a = self.kf_bias.get(s, (self.bias_g, self.bias_a))
+            valid = res.obs >= 0
+            pts = self.map.pt_pos[torch.clamp(res.obs, min=0).to(torch.int64)]
+            sigma2 = _const(self.config.frontend.sigma2, self.device)[frame.level.to(torch.int64)]
+            T_bw, v_chain, bg_chain, ba_chain, inl, _ = pose_opt.pose_inertial_optimization(
+                T_bw0, v_chain, bg_chain, ba_chain, T_bw_a, v_a, self._mirror(bg_a),
+                self._mirror(ba_a), pre, pts, frame.xy, sigma2, valid, self.K, self.T_cb,
+                imu.gravity(self.device))
+            res = res._replace(T_cw=lie.se3_mul(self.T_cb, T_bw),
+                               obs=torch.where(inl, res.obs, -1),
+                               n_inliers=torch.sum(inl, dtype=torch.int32))
+        packed = torch.cat([res.n_inliers.to(torch.float32)[None], v_chain, bg_chain, ba_chain])
+        copy = _HostCopy(packed)   # one readback a frame
+        self.velocity = lie.se3_mul(res.T_cw, lie.se3_inv(self.last_pose))
+        self.last_pose = res.T_cw
+        self._vel_dev = v_chain
+        self._bias_g_dev, self._bias_a_dev = bg_chain, ba_chain
+        self._pipeline.append((timestamp, frame, res, copy, self._imu_seq))
+        # retire a record once its readback has landed and a newer one is
+        # out, with the depth bound as the backstop
+        while (self._pipeline
+               and ((len(self._pipeline) >= 2 and self._record_ready((None, self._pipeline[0][3])))
+                    or len(self._pipeline) > self.async_depth)):
+            self._retire_pipelined()
+        return res.T_cw
+
+    def _retire_vi(self, ts, frame, res, copy, imu_seq):
+        """Retire one VI record: fold the packed readback into the host
+        mirrors and run the state machine (loss handling, visibility, the
+        keyframe decision with the IMU window split at this frame)."""
+        rec = copy.numpy()
+        n_inl = int(rec[0])
+        v_host = rec[1:4].astype(np.float32)
+        bg_host = rec[4:7].astype(np.float32)
+        ba_host = rec[7:10].astype(np.float32)
+        if n_inl < self.config.min_track_inliers:
+            if (self.imu_initialized and self._last_good_ts is not None
+                    and ts - self._last_good_ts < 5.0):
+                # the chain dead-reckoned through this frame: keep streaming
+                self.state = RECENTLY_LOST
+                self.vel_w, self.bias_g, self.bias_a = v_host, bg_host, ba_host
+                self.frames_since_kf += 1
+                return
+            self.state = RECENTLY_LOST if self.state == OK else LOST
+            self._lost_frames += 1
+            self._pipeline.clear()
+            self.velocity = lie.se3_identity(device=self.device)
+            self._vel_dev = None
+            if self._atlas_due():
+                self._new_map_in_atlas()
+            return
+        self._lost_frames = 0
+        self.state = OK
+        self._last_good_ts = ts
+        self.vel_w, self.bias_g, self.bias_a = v_host, bg_host, ba_host
+        self.map = update_visibility(self.map, res.visible, res.found)
+        self.frames_since_kf += 1
+        self._cur_ts = ts   # the decision and the keyframe stamp use this frame
+        if not self._need_new_keyframe(n_inl):
+            return
+        # the keyframe's IMU window ends at this frame: the split comes from
+        # the monotonic grab counter (a list index goes stale once an
+        # earlier retire truncated _imu_kf)
+        n_after = self._imu_seq - imu_seq
+        cut = max(0, len(self._imu_kf) - n_after)
+        tail = self._imu_kf[cut:]
+        self._imu_kf = self._imu_kf[:cut]
+        gen0 = self._rebase_gen
+        self._pending_rebase_S = None
+        chain = (self.last_pose, self._vel_dev, self._bias_g_dev, self._bias_a_dev)
+        self._create_keyframe(frame, res._replace(n_inliers=torch.tensor(n_inl)))
+        self._imu_kf = tail
+        if self._rebase_gen != gen0:
+            # the keyframe re-based the world (IMU init, scale refinement):
+            # the in-flight records hold old-frame poses and go; the chain
+            # head is carried into the new frame by the composed Sim3, and
+            # velocity and biases re-seed from the mirrors just written
+            self._pipeline.clear()
+            self.velocity = lie.se3_identity(device=self.device)
+            self._vel_dev = None
+            if self._pending_rebase_S is not None:
+                self.last_pose = lie.sim3_fold(lie.sim3_mul(
+                    lie.sim3_from_se3(chain[0]), lie.sim3_inv(self._pending_rebase_S)))
+            self._pending_rebase_S = None
+            if self.imu_initialized and tail:
+                # the mirrored velocity holds at the keyframe; the chain head
+                # is len(tail) frames ahead: propagate it through the rest
+                pre_t = self._cat_imu(tail)
+                R_wb, p_w = self._body_state(self.map.kf_pose[self.last_kf_slot])
+                _, v_head, _ = imu.predict_state(pre_t, R_wb, self._mirror(self.vel_w), p_w,
+                                                 bias_g=pre_t.bias_g, bias_a=pre_t.bias_a)
+                self._vel_dev = v_head
+                self._bias_g_dev = self._mirror(self.bias_g)
+                self._bias_a_dev = self._mirror(self.bias_a)
+        else:
+            # keep the newest chain, carrying the mapper's correction of the
+            # keyframe (tracked res.T_cw -> adjusted kf_pose) onto its head
+            delta = lie.se3_mul(lie.se3_inv(res.T_cw), self.map.kf_pose[self.last_kf_slot])
+            self.last_pose = lie.se3_mul(chain[0], delta)
+            self._vel_dev, self._bias_g_dev, self._bias_a_dev = chain[1:]
+
     # -- the autonomous lane --------------------------------------------------
 
     def enter_autonomous(self):
         """Switch steady-state tracking to `autonomous_step`: the keyframe
         decision and the mapper chain run inside the step; the host catches
-        up from outcome rows. Needs an initialized tracker and a mapper."""
-        if self.state != OK or self.local_mapper is None:
+        up from outcome rows. Needs an initialized visual tracker and a
+        mapper."""
+        if self.state != OK or self.inertial or self.local_mapper is None:
             return False
         # a pipelined record left behind would retire against slots the
         # autonomous chain has since renumbered
@@ -819,6 +1093,14 @@ class MonocularTracker:
         self.frames_since_kf = 0
         self.state = OK
         self._last_good_ts = self._cur_ts
+        if self.inertial:
+            # the map is metric from this frame; the IMU initialization later
+            # estimates gravity and velocities at fixed scale
+            self.kf_chain = [0]
+            self.kf_vel = {0: np.zeros(3, np.float32)}
+            self.kf_preint = {}
+            self._imu_kf = []
+            self._imu_frame = []
         if self.local_mapper is not None:
             self.local_mapper.on_initial_map(self)
         return self.last_pose
@@ -829,6 +1111,7 @@ class MonocularTracker:
             if n_valid > self.config.min_init_matches:
                 self.init_frame = frame
                 self._init_ts = self._cur_ts
+                self._imu_kf = []   # preintegration starts at the init frame
             return None
         f1, f2 = self.init_frame, frame
         idx, ok = matching.search_for_initialization(
@@ -837,6 +1120,7 @@ class MonocularTracker:
             # too few matches: restart from this frame
             self.init_frame = frame
             self._init_ts = self._cur_ts
+            self._imu_kf = []
             return None
         xn1 = cameras.pinhole_unproject(self.K, f1.xy)
         xn2 = cameras.pinhole_unproject(self.K, f2.xy[torch.clamp(idx, min=0)])
@@ -894,6 +1178,15 @@ class MonocularTracker:
         self.velocity = lie.se3_identity(device=dev)
         self.last_kf_slot = 1
         self.n_kf_host = 2
+        if self.inertial:
+            # the preintegration between the two bootstrap keyframes
+            self.kf_chain = [0, 1]
+            self.kf_vel = {0: np.zeros(3, np.float32), 1: np.zeros(3, np.float32)}
+            if self._imu_kf:
+                self.kf_preint = {1: self._cat_imu(self._imu_kf)}
+            self._imu_kf = []
+            self._imu_frame = []
+            self._last_good_ts = self._cur_ts
         self.kf_timestamps[0] = self._init_ts
         self.kf_timestamps[1] = self._cur_ts
         self.ref_kf_tracked = int(good.sum())
@@ -904,17 +1197,56 @@ class MonocularTracker:
     # -- steady-state tracking ----------------------------------------------
 
     def _predict_pose(self):
-        """Motion-model prediction for the next frame: (T_pred, None)."""
+        """The next frame's prediction: (T_pred, v_pred), from the IMU once
+        it is initialized (v_pred the dead-reckoned velocity, numpy), else
+        from the motion model (v_pred None)."""
+        if self.inertial and self.imu_initialized:
+            out = self._imu_predict()
+            if out is not None:
+                return out
         return lie.se3_mul(self.velocity, self.last_pose), None
 
     def _track(self, frame: Frame, timestamp: float):
-        if self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None:
+        if (self.state in (RECENTLY_LOST, LOST) and self.relocalizer is not None
+                and not (self.inertial and self.imu_initialized)):
             pose = self._try_relocalize(frame, timestamp)
             if pose is not None:
                 return pose
         T_pred, v_pred = self._predict_pose()
         res = track_frame(self.map, frame, T_pred, self.K, self.config)
+        # once the IMU is initialized the visual solve seeds the
+        # pose-inertial one (PoseInertialOptimizationLastKeyFrame)
+        if (self.inertial and self.imu_initialized and self._imu_kf
+                and self.last_kf_slot is not None
+                and int(res.n_inliers) >= self.config.min_track_inliers):
+            res, v_pred = self._pose_inertial_refine(frame, res, v_pred)
         return self._track_resolve(frame, timestamp, T_pred, v_pred, res)
+
+    def _pose_inertial_refine(self, frame: Frame, res: TrackResult, v_pred):
+        """The 15-dof refinement against the last keyframe's state
+        (`Optimizer.cc:4181`): pose, velocity and the running bias. Returns
+        (result, v numpy)."""
+        s = self.last_kf_slot
+        pre = self._cat_imu(self._imu_kf)
+        T_cb_inv = lie.se3_inv(self.T_cb)
+        T_bw0 = lie.se3_mul(T_cb_inv, res.T_cw)
+        T_bw_a = lie.se3_mul(T_cb_inv, self.map.kf_pose[s])
+        v0 = self._mirror(self.vel_w if v_pred is None else v_pred)
+        v_a = self._mirror(self.kf_vel.get(s, np.zeros(3, np.float32)))
+        bg, ba = pre.bias_g, pre.bias_a
+        valid = res.obs >= 0
+        pts = self.map.pt_pos[torch.clamp(res.obs, min=0).to(torch.int64)]
+        sigma2 = _const(self.config.frontend.sigma2, self.device)[frame.level.to(torch.int64)]
+        T_bw, v, bg2, ba2, inl, _ = pose_opt.pose_inertial_optimization(
+            T_bw0, v0, bg, ba, T_bw_a, v_a, bg, ba, pre, pts, frame.xy, sigma2, valid, self.K,
+            self.T_cb, imu.gravity(self.device))
+        out = torch.cat([v, bg2, ba2]).cpu().numpy()
+        self.bias_g = out[3:6].copy()
+        self.bias_a = out[6:9].copy()
+        res = res._replace(T_cw=lie.se3_mul(self.T_cb, T_bw),
+                           obs=torch.where(inl, res.obs, -1),
+                           n_inliers=torch.sum(inl, dtype=torch.int32))
+        return res, out[0:3].copy()
 
     def _try_relocalize(self, frame: Frame, timestamp: float):
         """`Tracking::Relocalization`: BoW candidates + PnP, then the
@@ -931,6 +1263,7 @@ class MonocularTracker:
         self._lost_frames = 0
         self.velocity = lie.se3_identity(device=self.device)
         self.last_pose = T
+        self._imu_frame = []
         self._last_good_ts = timestamp
         self.frames_since_kf += 1
         return T
@@ -939,6 +1272,16 @@ class MonocularTracker:
                        res: TrackResult, vis=None):
         n_inl = int(res.n_inliers)
         if n_inl < self.config.min_track_inliers:
+            if (self.inertial and self.imu_initialized and v_pred is not None
+                    and self._last_good_ts is not None and timestamp - self._last_good_ts < 5.0):
+                # RECENTLY_LOST with an IMU: dead reckoning carries the pose
+                # for up to 5 s (`Tracking.cc:1784-1812`)
+                self.state = RECENTLY_LOST
+                self.last_pose = T_pred
+                self.vel_w = v_pred
+                self._imu_frame = []
+                self.frames_since_kf += 1
+                return T_pred
             if self.relocalizer is not None:
                 pose = self._try_relocalize(frame, timestamp)
                 if pose is not None:
@@ -957,13 +1300,31 @@ class MonocularTracker:
         else:
             self.map = update_visibility(self.map, res.visible, res.found)
         self.velocity = lie.se3_mul(res.T_cw, lie.se3_inv(self.last_pose))
+        if self.inertial and v_pred is not None:
+            self.vel_w = v_pred   # the IMU-propagated velocity at the new pose
         self.last_pose = res.T_cw
+        self._imu_frame = []
         self.frames_since_kf += 1
         if self._need_new_keyframe(n_inl):
             self._create_keyframe(frame, res)
-            # the mapper's BA may have moved the keyframe: return its pose
+            # the mapper's BA, an IMU initialization or a merge-back may have
+            # moved the keyframe or re-based the world: return its pose
             return self.last_pose
         return res.T_cw
+
+    def apply_world_sim3(self, S):
+        """Re-base the continuation by a world-level Sim3 (the gravity and
+        scale alignment of the IMU initialization): the current pose
+        composes like a keyframe pose, the motion model resets, the
+        trajectory follows, and the pipelined VI lane learns of it."""
+        S = torch.as_tensor(S, dtype=torch.float32).to(self.device)
+        self._rebase_gen += 1
+        self._pending_rebase_S = (S if self._pending_rebase_S is None
+                                  else lie.sim3_mul(S, self._pending_rebase_S))
+        self.last_pose = lie.sim3_fold(lie.sim3_mul(lie.sim3_from_se3(self.last_pose),
+                                                    lie.sim3_inv(S)))
+        self.velocity = lie.se3_identity(device=self.device)
+        self.rebase_history(S)
 
     def rebase_history(self, S):
         """Re-base the recorded trajectory by a world-level Sim3 (the agent's
@@ -1005,6 +1366,12 @@ class MonocularTracker:
         self._lost_frames = 0
         self.n_kf_host = 0
         self._pipeline = []
+        self.imu_initialized = False
+        self.kf_chain = []
+        self.kf_preint = {}
+        self.kf_vel = {}
+        self._imu_kf = []
+        self._imu_frame = []
         if self.local_mapper is not None:
             self.local_mapper._kf_count = 0
         if self.relocalizer is not None and hasattr(self.relocalizer, "reset"):
@@ -1012,11 +1379,18 @@ class MonocularTracker:
 
     def _need_new_keyframe(self, n_inliers: int):
         """`Tracking::NeedNewKeyFrame` gates; thRefRatio 0.9 for a
-        monocular camera, 0.75 with a depth sensor."""
+        monocular camera, 0.75 with a depth sensor; an initialized IMU adds
+        a keyframe every 0.25 s."""
         if self.n_kf_host >= self.config.kf_cap - 1:
             return False
         ratio = 0.75 if self.config.depth_sensor else self.config.kf_ref_ratio
         c1 = self.frames_since_kf >= self.config.max_frames_between_kf
+        # an initialized IMU inserts keyframes at >= 4 Hz (`Tracking.cc:2859`):
+        # the inertial BA needs short preintegration spans
+        if (self.inertial and self.imu_initialized and self._cur_ts is not None
+                and self.last_kf_slot in self.kf_timestamps
+                and self._cur_ts - self.kf_timestamps[self.last_kf_slot] >= 0.25):
+            c1 = True
         c2 = n_inliers < ratio * max(self.ref_kf_tracked, 1)
         c3 = n_inliers > self.config.kf_min_inliers
         return (c1 or c2) and c3
@@ -1045,6 +1419,13 @@ class MonocularTracker:
         self.kf_timestamps[s] = self._cur_ts
         self.frames_since_kf = 0
         self.ref_kf_tracked = int(res.n_inliers)
+        if self.inertial:
+            if self.kf_chain and self._imu_kf:
+                self.kf_preint[s] = self._cat_imu(self._imu_kf)
+            self.kf_chain.append(s)
+            self.kf_vel[s] = np.asarray(self.vel_w, np.float32)
+            self.kf_bias[s] = (self.bias_g.copy(), self.bias_a.copy())
+            self._imu_kf = []
         if self.local_mapper is not None:
             self.local_mapper.on_new_keyframe(self, s)
         self._atlas_merge_back()

@@ -309,7 +309,9 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.multiagent.peer, dvm_slam_tpu_torch.multiagent.codec, "
                 "dvm_slam_tpu_torch.multiagent.reference_frames, "
                 "dvm_slam_tpu_torch.multiagent.agent, dvm_slam_tpu_torch.parallel.multi_agent, "
-                "dvm_slam_tpu_torch.multiagent.native_codec; "
+                "dvm_slam_tpu_torch.multiagent.native_codec, "
+                "dvm_slam_tpu_torch.geometry.imu, dvm_slam_tpu_torch.mapping.vi_ba, "
+                "dvm_slam_tpu_torch.mapping.inertial; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
                 "or m == 'yaml' or m.startswith('yaml.')]; "
@@ -1166,6 +1168,157 @@ def _reference_slice9_main(modes):
         print(json.dumps(out), flush=True)
 
 
+def slice10_frames(phase: int):
+    """Phase `phase`'s inputs rendered by the JAX world at the camera's full
+    size (phase 27's black span zeroed), the IMU chunks and the ground
+    truth: (frames, chunks, poses, velocities)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from dvm_slam_tpu.io import config as jcfg
+
+    settings = cs.settings10(phase, jcfg)
+    cam = settings.camera
+    world = jsyn.PlaneWorld(tex_size=cs.TEX_SIZE, **cs.WORLD10[phase])
+    poses, chunks, vels = jsyn.vi_trajectory(cs.N_FRAMES10[phase], fps=cam.fps,
+                                             imu_rate=settings.imu.frequency, **cs.TRAJ10[phase])
+    Kj = jnp.asarray([cam.fx, cam.fy, cam.cx, cam.cy])
+    h, w = cam.height, cam.width
+    lo, hi = cs.BLANK10.get(phase, (0, 0))
+    frames = []
+    for i, p in enumerate(poses):
+        T = jnp.asarray(p)
+        if phase == 27:
+            img = np.array(world.render(T, Kj, h, w))
+            frames.append((img * (0.0 if lo <= i < hi else 1.0),))
+        elif phase == 28:
+            il, ir = world.render_stereo(T, Kj, h, w, cam.baseline)
+            frames.append((np.array(il), np.array(ir)))
+        else:
+            frames.append((np.array(world.render(T, Kj, h, w)),
+                           cs.depth_to_sensor(world.render_depth(T, Kj, h, w))))
+    return frames, chunks, poses, vels
+
+
+def jax_vi_run(phase: int, frames, chunks, agent_id: int = 0, n_calls=None, first: int = 0):
+    """Phase `phase`'s frames (from `first`) through the JAX System's
+    `track_*_inertial` as agent `agent_id`, the pipelined VI lane retiring
+    at the next dispatch (`_record_ready` true); with `n_calls` it stops
+    after the two-view init. Returns (outcomes dict, System)."""
+    import tempfile
+
+    import chip_smoke as cs
+    from dvm_slam_tpu.io import config as jcfg
+    from dvm_slam_tpu.io import trajectory as jtraj
+    from dvm_slam_tpu.models import system as jsys
+
+    settings = cs.settings10(phase, jcfg)
+    fps = settings.camera.fps
+    sysj = jsys.System(settings, sensor=cs.MODE10[phase], agent_id=agent_id)
+    t = sysj.tracker
+    t._record_ready = lambda rec: True
+    init_pair, imu_init, live = None, None, {}
+    for i in range(first, len(frames)):
+        fr = frames[i]
+        ts = (i - first) / fps
+        was, imu0 = t.state, t.imu_initialized
+        if phase == 27:
+            pose = sysj.track_monocular_inertial(fr[0], ts, *chunks[i])
+        elif phase == 28:
+            pose = sysj.track_stereo_inertial(fr[0], fr[1], ts, *chunks[i])
+        else:
+            pose = sysj.track_rgbd_inertial(fr[0], fr[1], ts, *chunks[i])
+        if pose is not None:
+            live[i] = np.asarray(pose)
+        if was == jtrk.NOT_INITIALIZED and t.state == jtrk.OK and init_pair is None:
+            init_pair = (int(round(t._init_ts * fps)) + first if phase == 27 else i, i)
+            if n_calls is not None:
+                return {"init_pair": init_pair}, sysj
+        if t.imu_initialized and not imu0:
+            imu_init = (i, len(t.kf_chain))
+        if n_calls is not None and i + 1 - first >= n_calls:
+            return {"init_pair": init_pair}, sysj
+    t.flush_pipeline()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "traj_tum.txt")
+        sysj.save_trajectory_tum(path)
+        rows = jtraj.load_tum(path)
+    out = {"init_pair": init_pair, "imu_init": imu_init, "final_state": t.state,
+           "tracked_frames": [int(round(ts * fps)) + first for ts, _ in rows],
+           "kf_frames": sorted(int(round(v * fps)) + first for v in t.kf_timestamps.values()),
+           "n_kf": int(t.map.n_kf)}
+    run = {"frames": out["tracked_frames"], "poses": np.stack([T for _, T in rows]),
+           "live": live, "imu_init": imu_init}
+    return out, sysj, run
+
+
+def _reference_slice10_main(modes, seed=None):
+    """The JAX package's CPU references of chip_smoke.py's phases 27-30: one
+    JSON line per mode (imu-mono, imu-stereo, imu-rgbd, merge); for imu-mono
+    also the two-view init under the draws of agents 1-5, and with `seed`
+    the whole imu-mono run under agent `seed`'s draws instead (one line of
+    `JAX_REF10["imu-monocular"]["by_seed"]`)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from dvm_slam_tpu.multiagent import agent as jagent
+    from dvm_slam_tpu.multiagent import codec as jcodec
+    from dvm_slam_tpu.multiagent import transport as jtransport
+    from dvm_slam_tpu.placerec import vocabulary as jvocab
+    from dvm_slam_tpu.geometry import lie as jlie
+
+    phases = {"imu-mono": 27, "imu-stereo": 28, "imu-rgbd": 29, "merge": 28}
+    for mode in modes:
+        phase = phases[mode]
+        t0 = time.time()
+        frames, chunks, poses, vels = slice10_frames(phase)
+        if seed is not None:
+            out, sysj, run = jax_vi_run(phase, frames, chunks, agent_id=seed)
+            print(json.dumps({"seed": seed, "init_pair": out["init_pair"],
+                              "imu_init": out["imu_init"], "n_kf": out["n_kf"],
+                              "ratio": cs.vi_ratio(phase, run, poses),
+                              "final_state": out["final_state"],
+                              "seconds": time.time() - t0}), flush=True)
+            continue
+        out, sysj, run = jax_vi_run(phase, frames, chunks)
+        if mode == "merge":
+            s2, sys2, _ = jax_vi_run(28, frames, chunks, first=cs.SEGMENT30)
+            t1 = sysj.tracker
+            mask = np.asarray(sys2.map.kf_valid).copy()
+            mask[int(sys2.map.n_kf):] = False
+            blob = jcodec.extract_submap(sys2.map, sys2.tracker.meta, mask).to_bytes()
+            cfg = t1.config
+            a = jagent.SlamAgent(1, cfg, np.asarray(sysj.settings.camera.K()),
+                                 np.zeros(4, np.float32),
+                                 jvocab.load(os.path.join(REPO, cs.VOCAB)),
+                                 jtransport.LoopbackTransport(), [1, 2], autonomous=False)
+            a.tracker = t1
+            t1.meta.agent_id = 1
+            mB, metaB = jcodec.materialize(jcodec.MapPacket.from_bytes(blob),
+                                           cfg.frontend.capacity)
+            a._do_merge(2, mB, metaB, np.asarray(jlie.sim3_identity()), t1.kf_chain[-1])
+            a.flush_gba()
+            fps = cfg.fps
+            errs = {}
+            for s in t1.kf_chain[-6:]:
+                i = int(round(t1.kf_timestamps[s] * fps))
+                if 0 <= i < len(vels):
+                    errs[i] = float(np.linalg.norm(np.asarray(t1.kf_vel[s]) - vels[i]))
+            out = {"vel_err": errs, "bias_g": float(np.linalg.norm(t1.bias_g)),
+                   "bias_a": float(np.linalg.norm(t1.bias_a)),
+                   "merged": ("merged", 2) in a.log,
+                   "gba_applied": any(e[0] == "gba_applied" for e in a.log),
+                   "system2": s2}
+        else:
+            out["ratio"] = cs.vi_ratio(phase, run, poses)
+            if phase == 27:
+                out["init_by_seed"] = {0: (out["init_pair"],)}
+                for seed in range(1, 6):
+                    r, _ = jax_vi_run(phase, frames, chunks, agent_id=seed, n_calls=24)
+                    out["init_by_seed"][seed] = (r["init_pair"],)
+        out["mode"] = mode
+        out["seconds"] = time.time() - t0
+        print(json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if "--slice8" in sys.argv:  # the protocol runs on a 4-device CPU mesh
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -1173,7 +1326,13 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if "--slice9" in sys.argv:
+    if "--slice10" in sys.argv:
+        _reference_slice10_main([m for m in ("imu-mono", "imu-stereo", "imu-rgbd", "merge")
+                                 if m in sys.argv] or ["imu-mono", "imu-stereo", "imu-rgbd",
+                                                       "merge"],
+                                int(sys.argv[sys.argv.index("--seed") + 1])
+                                if "--seed" in sys.argv else None)
+    elif "--slice9" in sys.argv:
         modes = [m for m in ("stereo", "rgbd", "kb8") if m in sys.argv] or ["stereo", "rgbd", "kb8"]
         _reference_slice9_main(modes)
     elif "--slice2" in sys.argv:

@@ -168,9 +168,10 @@ class TestSystemFacade:
         assert lost["rows"] == len(_read(runs["port"]["files"]["tum"])) + 1
 
     def test_unported_paths_raise(self, runs):
-        """The inertial sensor modes and the viewer still raise; a stereo
-        System without a baseline raises ValueError as the reference's does;
-        map serialization and the checkpoint are ported
+        """The viewer still raises; the inertial sensor modes construct and
+        track (`tests/test_torch_vi_*.py` hold them to the reference); a
+        stereo System without a baseline raises ValueError as the
+        reference's does; map serialization and the checkpoint are ported
         (`tests/test_torch_multiagent.py`)."""
         st = runs["system"]
         from dvm_slam_tpu_torch.multiagent import codec as tcodec
@@ -183,13 +184,24 @@ class TestSystemFacade:
                 jsys.System(_settings(), sensor=sensor)
             with pytest.raises(ValueError):
                 tsys.System(settings, sensor=sensor, device="cpu")
+        img = np.zeros((240, 320), np.float32)
+        none = (np.zeros((0, 3), np.float32),) * 2 + (np.zeros(0, np.float32),)
         for sensor in ("imu-monocular", "imu-stereo", "imu-rgbd"):
-            with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-                tsys.System(settings, sensor=sensor, device="cpu")
+            s = convert.system_settings_from_dict(dataclasses.asdict(_settings()))
+            s.camera.baseline = 0.0 if sensor == "imu-monocular" else 0.1
+            sysm = tsys.System(s, sensor=sensor, device="cpu")
+            assert sysm.tracker.inertial and not sysm.is_imu_initialized()
+            if sensor == "imu-monocular":
+                out = sysm.track_monocular_inertial(img, 0.0, *none)
+            elif sensor == "imu-stereo":
+                out = sysm.track_stereo_inertial(img, img, 0.0, *none)
+            else:
+                out = sysm.track_rgbd_inertial(img, img, 0.0, *none)
+            assert out is None and sysm.get_tracking_state() == "NOT_INITIALIZED"
         with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
             tsys.System(settings, device="cpu", use_viewer=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
-            settings.imu.calib()
+        assert tuple(settings.imu.calib()) == tuple(float(np.asarray(v))
+                                                   for v in jcfg.ImuSettings().calib())
 
 
 class TestSettings:
