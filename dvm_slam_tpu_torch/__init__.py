@@ -19,8 +19,14 @@ counterpart is found by path and name:
   placerec/   BoW vocabulary and keyframe database
   loopclosing/ Sim3 solver, map merging, loop detection, essential graph
   multiagent/ `SlamAgent`, the map codec, typed wire and transports
-  models/     the `System` facade
-  io/         synthetic textured-plane world, settings, trajectories
+  models/     the `System` facade (and its viewer)
+  io/         synthetic textured-plane world, settings, trajectories, the
+              dataset loaders over the port's own PNG reader (`png.py`),
+              frame recording, the kinematic robot sim, viz exports and the
+              matplotlib viewer
+  control/    velocity driver, follow-the-leader and NMPC controllers
+  tools/      the operator console, `plot_run`, `train_vocab`
+  utils/      leveled logging, `StageTimer`
 
 Port-only glue: `device.py` (precision policy), `convert.py` (numpy-dict
 exchange of map, frame and config with the JAX package) and `_build.py`

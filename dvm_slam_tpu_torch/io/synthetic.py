@@ -1,7 +1,8 @@
 """Synthetic textured-plane world with exact ground-truth trajectories.
 
 Port of `make_texture`, `PlaneWorld.render`, `PlaneWorld.render_depth`,
-`PlaneWorld.render_stereo` and `smooth_trajectory` from `dvm_slam_tpu/io/synthetic.py`. The texture and the
+`PlaneWorld.render_stereo`, `smooth_trajectory`, `circuit_trajectory` and
+`vi_trajectory` from `dvm_slam_tpu/io/synthetic.py`. The texture and the
 plane layout come from the same numpy `RandomState` draws in the same order,
 so both packages build the same world; rendering is z-buffered ray/plane
 intersection with bilinear texture sampling, on the device the world lives
@@ -151,6 +152,28 @@ def smooth_trajectory(n_frames: int, lateral=2.5, forward=1.0, yaw=0.15,
         yaw_i = yaw * np.sin(s * np.pi)
         q = lie.so3_exp(torch.tensor([0.0, yaw_i, 0.0], dtype=torch.float32))
         c = torch.tensor([cx, cy, cz], dtype=torch.float32)
+        poses.append(lie.se3_inv(torch.cat([q, c])).numpy())
+    return poses
+
+
+def circuit_trajectory(n_frames: int, radius=2.2, forward=0.0, yaw_amp=0.25,
+                       loops=1.0, z_amp=0.08):
+    """Loop-closing circuit (list of world->camera SE3 [7] numpy f32): the
+    camera center travels `loops` times around an x-y circle of `radius`
+    while facing the background plane (+z), with mild sinusoidal yaw and
+    height variation for parallax. After one loop the view returns to the
+    start (the long-trajectory revisit the reference evaluates on EuRoC MH
+    sequences)."""
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1) * loops
+        ang = 2 * np.pi * s
+        cx = radius * np.sin(ang)
+        cy = radius * 0.55 * (np.cos(ang) - 1.0)
+        cz = forward * s + z_amp * np.sin(4 * np.pi * s)
+        yaw_i = yaw_amp * np.sin(ang)
+        q = lie.so3_exp(torch.tensor([0.0, yaw_i, 0.0], dtype=torch.float32))
+        c = torch.tensor(np.array([cx, cy, cz], np.float32))
         poses.append(lie.se3_inv(torch.cat([q, c])).numpy())
     return poses
 

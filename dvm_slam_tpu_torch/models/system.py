@@ -24,15 +24,17 @@ relocalization and the multi-map atlas: a new map on persistent LOST and the
 merge-back into a stored map on a later keyframe.
 
 `serialize_map` gives the map packet of the multi-agent wire, and
-`save_atlas`/`load_atlas` a checkpoint in the JAX package's format. The
-viewer is not ported yet and raises `NotImplementedError` naming ROADMAP
-item 14.
+`save_atlas`/`load_atlas` a checkpoint in the JAX package's format. With
+`use_viewer` every 10th monocular frame redraws `io.viz.LiveViewer`: a live
+matplotlib window where a display exists, PNG frames under `viewer_frames/`
+otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 from typing import Optional
 
 import numpy as np
@@ -59,10 +61,6 @@ IMU_RGBD = "imu-rgbd"
 _SENSORS = (MONOCULAR, IMU_MONOCULAR, STEREO, RGBD, IMU_STEREO, IMU_RGBD)
 
 
-def _not_ported(what: str, items: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {items})")
-
-
 class System:
     """One SLAM agent on `device` with a monocular, stereo or RGB-D camera,
     with or without an IMU.
@@ -75,8 +73,6 @@ class System:
                  device="cuda", use_kernel: Optional[bool] = None):
         if sensor not in _SENSORS:
             raise NotImplementedError(f"unknown sensor mode {sensor!r}; supported: {_SENSORS}")
-        if use_viewer:
-            raise _not_ported("the viewer", "14")
         if isinstance(settings, str):
             settings = config_mod.load_settings(settings)
         self.settings = settings
@@ -100,6 +96,17 @@ class System:
             T_cb=np.asarray(settings.imu.T_cb, np.float32) if inertial else None,
             device=self.device)
         self.tracker.meta.agent_id = agent_id
+        self.use_viewer = use_viewer
+        self.viewer = None
+        self._viewer_every = 10
+        if use_viewer:
+            # `Viewer`/`MapDrawer`/`FrameDrawer` role: live window when a
+            # display exists, PNG frame dumps otherwise (io.viz.LiveViewer)
+            from ..io.viz import LiveViewer
+
+            interactive = bool(os.environ.get("DISPLAY"))
+            self.viewer = LiveViewer(out_dir=None if interactive else "viewer_frames",
+                                     interactive=interactive)
         self.voc = vocabulary.load(vocabulary_file) if vocabulary_file else None
         if self.voc is not None:
             # relocalization and the multi-submap atlas (a new map on
@@ -130,7 +137,17 @@ class System:
     def track_monocular(self, img, timestamp: float):
         """`System::TrackMonocular`: grayscale (or RGB, averaged) image in,
         world->camera SE3 [7] out (None before initialization)."""
-        return self.tracker.process_image(self._prep(img), timestamp)
+        img = self._prep(img)
+        pose = self.tracker.process_image(img, timestamp)
+        self._maybe_draw(img)
+        return pose
+
+    def _maybe_draw(self, img=None):
+        if self.viewer is None:
+            return
+        if self.tracker.n_frames % self._viewer_every:
+            return
+        self.viewer.update(self.tracker.map, trajectory=self.tracker.trajectory[-200:], img=img)
 
     def track_stereo(self, img_left, img_right, timestamp: float):
         """`System::TrackStereo`: a rectified grayscale (or RGB) pair in,

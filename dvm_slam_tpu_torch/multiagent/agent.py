@@ -395,6 +395,20 @@ class SlamAgent:
             peer.sent_key_frame_uuids.update(msgs.uuid_key(u) for u in packet.kf_uuid)
             peer.sent_map_point_uuids.update(msgs.uuid_key(u) for u in packet.pt_uuid)
 
+    def send_loop_closure_triggers(self, trigger_uuids):
+        """`sendLoopClosureTriggers` (`:862-918`): each merged peer gets the
+        trigger uuids it has not been sent yet. As in the reference, the run
+        loop never calls it."""
+        for peer in self.peers:
+            if not peer.successfully_merged:
+                continue
+            fresh = [u for u in trigger_uuids if u not in peer.sent_loop_closure_trigger_uuids]
+            if not fresh:
+                continue
+            self.transport.publish(self.agent_id, peer.agent_id, msgs.CH_LOOP_CLOSURE_TRIGGERS,
+                                   msgs.LoopClosureTriggers(self.agent_id, fresh))
+            peer.sent_loop_closure_trigger_uuids.update(fresh)
+
     def _update_is_lost(self):
         lost = self._is_lost()
         if lost != self._was_lost:

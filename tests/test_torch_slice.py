@@ -311,7 +311,13 @@ class TestPortContracts:
                 "dvm_slam_tpu_torch.multiagent.agent, dvm_slam_tpu_torch.parallel.multi_agent, "
                 "dvm_slam_tpu_torch.multiagent.native_codec, "
                 "dvm_slam_tpu_torch.geometry.imu, dvm_slam_tpu_torch.mapping.vi_ba, "
-                "dvm_slam_tpu_torch.mapping.inertial; "
+                "dvm_slam_tpu_torch.mapping.inertial, dvm_slam_tpu_torch.io.png, "
+                "dvm_slam_tpu_torch.io.datasets, dvm_slam_tpu_torch.io.recording, "
+                "dvm_slam_tpu_torch.io.sim, dvm_slam_tpu_torch.io.viz, "
+                "dvm_slam_tpu_torch.control.driver, dvm_slam_tpu_torch.control.follow, "
+                "dvm_slam_tpu_torch.control.nmpc, dvm_slam_tpu_torch.utils.profiling, "
+                "dvm_slam_tpu_torch.utils.verbose, dvm_slam_tpu_torch.tools.console, "
+                "dvm_slam_tpu_torch.tools.plot_run, dvm_slam_tpu_torch.tools.train_vocab; "
                 "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
                 "or m.startswith('dvm_slam_tpu.') or m == 'dvm_slam_tpu' "
                 "or m == 'yaml' or m.startswith('yaml.')]; "
@@ -1319,6 +1325,204 @@ def _reference_slice10_main(modes, seed=None):
         print(json.dumps(out), flush=True)
 
 
+MINI_EUROC = os.path.join(REPO, "tests", "fixtures", "mini_euroc")
+
+
+def instrument_console_agents(agents, rec):
+    """Phase 31's instrumentation of the agents `console.run_dataset` builds
+    (either package): asynchronous results land on the next call (fault s),
+    and `rec` collects each agent's calls (`steps`: the keyframe count after
+    each `process_image`) and its merges (agent, the call it merged on, the
+    peer)."""
+    for aid, a in agents.items():
+        a.tracker._record_ready = lambda r: True
+        a._gba_ready = lambda: True
+        rec["kf_steps"][aid] = []
+        process, do_merge = a.process_image, a._do_merge
+
+        def processing(img, ts, a=a, aid=aid, process=process):
+            out = process(img, ts)
+            rec["kf_steps"][aid].append(a.tracker.n_kf_host)
+            return out
+
+        def merging(peer_id, mB, metaB, S_ab, weld_kf, a=a, aid=aid, do_merge=do_merge):
+            rec["merges"].append({"agent": aid, "peer": int(peer_id),
+                                  "step": len(rec["kf_steps"][aid]),
+                                  "streaming": len(rec["kf_steps"][aid]) < rec["n_steps"][aid]})
+            return do_merge(peer_id, mB, metaB, S_ab, weld_kf)
+
+        a.process_image, a._do_merge = processing, merging
+    return agents
+
+
+def console_summary(rep, out_dir, rec):
+    """The outcome of a `run_dataset` call on `mini_euroc` that phase 31
+    holds the card to."""
+    out = {"agents": {aid: dict(v) for aid, v in rep["agents"].items()},
+           "merges": rec["merges"], "kf_steps": {str(k): v for k, v in rec["kf_steps"].items()}}
+    for aid in rep["agents"]:
+        with open(os.path.join(out_dir, f"robot{aid}_state.json")) as f:
+            doc = json.load(f)
+        out["agents"][aid].update(n_keyframes=doc["n_keyframes"], merged_with=doc["merged_with"],
+                                  loop_triggers=doc["loop_triggers"])
+    out["bandwidth_bytes"] = rep.get("bandwidth", {}).get("bytes_by_channel", {})
+    return out
+
+
+def _nonfinite_points(m) -> int:
+    valid = np.asarray(m.pt_valid)
+    return int((~np.isfinite(np.asarray(m.pt_pos)[valid])).any(-1).sum())
+
+
+def _reference_slice11_main(package: str = "jax", witness: bool = False, seed_offset=None):
+    """The JAX package's CPU reference of phase 31: `console.run_dataset` on
+    `tests/fixtures/mini_euroc` with `tests/test_dataset_integration.py`'s
+    arguments (two agents, overlap 0.5, the fixture's settings and ground
+    truth). Prints one JSON object (`chip_smoke.py`'s JAX_REF11): each
+    agent's Sim3-aligned ATE, paired frames, keyframes and merges, and the
+    call each merge happened on. Each scale alignment is listed with its
+    scale, the non-finite map points it read and the agent's ATE over the
+    trajectory just before it (`pre_scale`): on the CPU the reference's
+    global BA leaves non-finite points in agent 2's merged map, the
+    alignment reads a scale of 0 from them and the re-base turns every pose
+    of agent 2 into NaN.
+
+    `package="torch"` makes the same run and record with the port's console
+    on the CPU. `seed_offset` N draws each agent's two-view RANSAC from the
+    JAX tracker's key PRNGKey(agent id + N), in the port by replaying those
+    draws (`test_torch_system.reference_noise`); by default each package
+    draws its own. `witness` (fault aa's second witness) keeps each post-merge
+    global BA's input map and result and replays that input through both
+    packages' `global_ba` afterwards (`gba_replay`): the non-finite points
+    and poses of each result, and the observers of the points that went
+    non-finite."""
+    import tempfile
+
+    import jax
+
+    from dvm_slam_tpu.eval import metrics as jmetrics
+    from dvm_slam_tpu.io import datasets as jds
+    from dvm_slam_tpu.mapping import local_mapping as jlm
+    from dvm_slam_tpu.multiagent import agent as jagent
+    from dvm_slam_tpu.tools import console as jcon
+
+    from dvm_slam_tpu_torch.mapping import local_mapping as tlm
+    from dvm_slam_tpu_torch.tools import console as tcon
+    from test_torch_system import reference_noise
+
+    t0 = time.time()
+    jagent._dev_ready = lambda arr: True
+    con = jcon if package == "jax" else tcon
+    build = con.build_agents
+    parts = jds.load_euroc(MINI_EUROC).split_for_agents(2, overlap=0.5)
+    gt_stamps, gt_all = jds.load_groundtruth_tum(os.path.join(MINI_EUROC, "gt_tum.txt"))
+    rec = {"kf_steps": {}, "merges": [], "n_steps": {1: len(parts[0]), 2: len(parts[1])},
+           "scale": [], "after_merge": [], "gba": []}
+
+    def trajectory_ate(aid, rows):
+        """The console's pairing and Sim3-aligned ATE over `rows`."""
+        est, gt = [], []
+        for ts_rel, T in rows:
+            ts = ts_rel + parts[aid - 1].stamps[0]
+            i = int(np.argmin(np.abs(gt_stamps - ts)))
+            if abs(gt_stamps[i] - ts) < 0.05:
+                est.append(T)
+                gt.append(gt_all[i])
+        return float(jmetrics.ate_rmse(np.stack(est), np.stack(gt))[0]), len(est)
+
+    def building(*a, **k):
+        agents = instrument_console_agents(build(*a, **k), rec)
+        for aid, ag in agents.items():
+            if seed_offset is not None and package == "jax":
+                ag.tracker.key = jax.random.PRNGKey(aid + seed_offset)
+            elif seed_offset is not None:
+                ag.tracker._ransac_noise = reference_noise(aid + seed_offset)
+            update_scale, do_merge, dispatch = (ag._update_map_scale, ag._do_merge,
+                                                ag._dispatch_gba)
+
+            def scaling(ts, ag=ag, aid=aid, update_scale=update_scale):
+                n_log = len(ag.log)
+                bad = _nonfinite_points(ag.map)
+                rows = [(t, _host_np(T, np.float32)) for t, T, _ in ag.tracker.trajectory]
+                update_scale(ts)
+                for e in ag.log[n_log:]:
+                    if e[0] == "scale_aligned":
+                        ate, n = trajectory_ate(aid, rows)
+                        rec["scale"].append({"agent": aid, "s": e[2], "nonfinite_points": bad,
+                                             "ate_before": ate, "frames_before": n})
+
+            def merging(*args, ag=ag, aid=aid, do_merge=do_merge):
+                out = do_merge(*args)
+                rec["after_merge"].append({"agent": aid,
+                                           "nonfinite_points": _nonfinite_points(ag.map)})
+                return out
+
+            def dispatching(merged, weld_kf, ag=ag, aid=aid, dispatch=dispatch):
+                out = dispatch(merged, weld_kf)
+                if witness:
+                    fc = ag.config.frontend
+                    rec["gba"].append({
+                        "agent": aid, "weld_kf": int(weld_kf), "K": _host_np(ag.tracker.K),
+                        "levels": (fc.n_levels, fc.scale_factor),
+                        "map": {k: None if v is None else _host_np(v)
+                                for k, v in merged._asdict().items()},
+                        "res_pose": _host_np(ag._pending_gba["res_pose"]),
+                        "res_pt": _host_np(ag._pending_gba["res_pt"])})
+                return out
+
+            ag._update_map_scale, ag._do_merge, ag._dispatch_gba = scaling, merging, dispatching
+        return agents
+
+    con.build_agents = building
+    kw = {} if package == "jax" else {"device": "cpu"}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            rep = con.run_dataset(MINI_EUROC, fmt="euroc",
+                                  settings_path=os.path.join(MINI_EUROC, "settings.yaml"),
+                                  n_agents=2, out_dir=d, overlap=0.5,
+                                  gt_path=os.path.join(MINI_EUROC, "gt_tum.txt"), **kw)
+            out = console_summary(rep, d, rec)
+    finally:
+        con.build_agents = build
+    out["pre_scale"], out["after_merge"] = rec["scale"], rec["after_merge"]
+    out["package"], out["torch_threads"] = package, torch.get_num_threads()
+    out["seed_offset"] = seed_offset
+    out["gba_replay"] = [_gba_replay(g, jlm, tlm) for g in rec["gba"]]
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out))
+
+
+def _gba_replay(g, jlm, tlm):
+    """One post-merge global BA of `_reference_slice11_main(witness=True)`:
+    its input map replayed through the JAX and the port's `global_ba` (8 LM
+    steps, the agent's pyramid), each result's non-finite valid points and
+    keyframe poses, and, for the points the live run left non-finite, their
+    observer counts in the input map."""
+    m = g["map"]
+    valid, kf_valid = m["pt_valid"], m["kf_valid"]
+    n_lv, sf = g["levels"]
+    jm = jms.MapState(**{k: None if v is None else jnp.asarray(v) for k, v in m.items()})
+    jres, _ = jlm.global_ba(jm, jnp.asarray(g["K"]), iters=8, n_levels=n_lv, scale_factor=sf)
+    tres, _ = tlm.global_ba(convert.map_state_from_numpy(m, "cpu"), torch.from_numpy(g["K"]),
+                            iters=8, n_levels=n_lv, scale_factor=sf)
+
+    def bad(pt, pose):
+        return {"points": int((~np.isfinite(pt[valid])).any(-1).sum()),
+                "poses": int((~np.isfinite(pose[kf_valid])).any(-1).sum())}
+
+    live_bad = valid & ~np.isfinite(g["res_pt"]).all(-1)
+    nobs = _host_np(jms.point_observers(jm))
+    t_pt, t_pose = _host_np(tres.pt_pos), _host_np(tres.kf_pose)
+    fin = valid & np.isfinite(g["res_pt"]).all(-1) & np.isfinite(t_pt).all(-1)
+    return {"agent": g["agent"], "weld_kf": g["weld_kf"], "n_kf": int(kf_valid.sum()),
+            "n_points": int(valid.sum()), "live": bad(g["res_pt"], g["res_pose"]),
+            "jax_replay": bad(_host_np(jres.pt_pos), _host_np(jres.kf_pose)),
+            "torch_replay": bad(t_pt, t_pose),
+            "observers_of_live_nonfinite": sorted(int(n) for n in nobs[live_bad]),
+            "max_point_diff_where_finite": float(np.abs(t_pt[fin] - g["res_pt"][fin]).max())
+            if fin.any() else None}
+
+
 if __name__ == "__main__":
     if "--slice8" in sys.argv:  # the protocol runs on a 4-device CPU mesh
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
@@ -1332,6 +1536,13 @@ if __name__ == "__main__":
                                                        "merge"],
                                 int(sys.argv[sys.argv.index("--seed") + 1])
                                 if "--seed" in sys.argv else None)
+    elif "--slice11" in sys.argv:
+        if "--threads" in sys.argv:
+            torch.set_num_threads(int(sys.argv[sys.argv.index("--threads") + 1]))
+        _reference_slice11_main("torch" if "--port" in sys.argv else "jax",
+                                witness="--witness" in sys.argv,
+                                seed_offset=int(sys.argv[sys.argv.index("--seed-offset") + 1])
+                                if "--seed-offset" in sys.argv else None)
     elif "--slice9" in sys.argv:
         modes = [m for m in ("stereo", "rgbd", "kb8") if m in sys.argv] or ["stereo", "rgbd", "kb8"]
         _reference_slice9_main(modes)

@@ -167,9 +167,11 @@ class TestSystemFacade:
         # pipelined lane records the pose it dispatched, as the reference does
         assert lost["rows"] == len(_read(runs["port"]["files"]["tum"])) + 1
 
-    def test_unported_paths_raise(self, runs):
-        """The viewer still raises; the inertial sensor modes construct and
-        track (`tests/test_torch_vi_*.py` hold them to the reference); a
+    def test_unported_paths_raise(self, runs, tmp_path, monkeypatch):
+        """The viewer draws (headless: PNG frames under `viewer_frames/`
+        every 10th frame, as the reference's); the inertial sensor modes
+        construct and track (`tests/test_torch_vi_*.py` hold them to the
+        reference); a
         stereo System without a baseline raises ValueError as the
         reference's does; map serialization and the checkpoint are ported
         (`tests/test_torch_multiagent.py`)."""
@@ -198,8 +200,19 @@ class TestSystemFacade:
             else:
                 out = sysm.track_rgbd_inertial(img, img, 0.0, *none)
             assert out is None and sysm.get_tracking_state() == "NOT_INITIALIZED"
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            tsys.System(settings, device="cpu", use_viewer=True)
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.delenv("DISPLAY", raising=False)
+        viewed = tsys.System(settings, device="cpu", use_viewer=True)
+        assert viewed.viewer is not None and not viewed.viewer.interactive
+        rng = np.random.RandomState(0)
+        drawn = 0
+        for i in range(10):
+            viewed.track_monocular((rng.rand(240, 320) * 255).astype(np.float32), i * 0.1)
+            drawn += viewed.tracker.n_frames % 10 == 0
+        viewed.viewer.close()
+        frames = sorted(os.listdir(tmp_path / "viewer_frames"))
+        assert drawn >= 1 and frames == [f"viewer_{k:05d}.png" for k in range(drawn)]
+        assert all(os.path.getsize(tmp_path / "viewer_frames" / f) > 1000 for f in frames)
         assert tuple(settings.imu.calib()) == tuple(float(np.asarray(v))
                                                    for v in jcfg.ImuSettings().calib())
 
