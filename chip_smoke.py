@@ -1166,7 +1166,7 @@ def instrument(sysm, log, timed_sync):
     (`timed_sync` synchronises around them). Records of the autonomous lane
     retire as soon as the next one is dispatched (`_record_ready` true, as on
     the CPU), so a hand-back lands on the same call in every run."""
-    from dvm_slam_tpu_torch.ops import scatter, scatter_kernel
+    from dvm_slam_tpu_torch.ops import scatter
 
     t = sysm.tracker
     t._record_ready = lambda rec: True
@@ -1206,7 +1206,7 @@ def instrument(sysm, log, timed_sync):
         return adjoint(v, pidx, P, use_kernel=use_kernel)
 
     def merge_back(m, meta, q):
-        k2, k3 = scatter_kernel.launches_adjoint, scatter_kernel.launches_gather
+        k0 = counts_now()
         shapes.clear()
         scatter.onehot_adjoint = adjoint_rows
         try:
@@ -1217,7 +1217,8 @@ def instrument(sysm, log, timed_sync):
             call=log["cur"], query=int(q), merged=out is not None,
             S_ab=None if out is None else np.asarray(out[3]), n_kf=None if out is None
             else int(out[0].n_kf), rows=len(t.trajectory), ms=ms,
-            k2=scatter_kernel.launches_adjoint - k2, k3=scatter_kernel.launches_gather - k3,
+            k2=counts_now()["onehot_adjoint"] - k0["onehot_adjoint"],
+            k3=counts_now()["onehot_gather"] - k0["onehot_gather"],
             ba_rows=sorted(set(shapes))))
         return out
 
@@ -1413,12 +1414,12 @@ def check_k1(name, raws, blurs, xy, offsets, tag=3):
 
     from dvm_slam_tpu_torch.ops import orb_descriptor, orb_kernel
 
-    before = orb_kernel.launches
+    before = counts_now()["orb_describe"]
     ang_k, desc_k = orb_kernel.orient_and_describe_levels(raws, blurs, xy, offsets)
     ang_t, desc_t = orb_descriptor.orient_and_describe_levels(raws, blurs, xy, offsets)
     torch.cuda.synchronize()
-    check(orb_kernel.launches == before + 1,
-          f"{name}: {orb_kernel.launches - before} K1 launches for one frame")
+    check(counts_now()["orb_describe"] == before + 1,
+          f"{name}: {counts_now()['orb_describe'] - before} K1 launches for one frame")
     for lv, (a, b) in enumerate(zip(offsets[:-1], offsets[1:])):
         err = float((ang_k[a:b] - ang_t[a:b]).abs().max()) if b > a else 0.0
         diff = int((desc_k[a:b] != desc_t[a:b]).sum())
@@ -2041,17 +2042,17 @@ def protocol_windows(r):
 
 
 def counts_now():
-    from dvm_slam_tpu_torch.ops import orb_kernel, scatter_kernel
+    from dvm_slam_tpu_torch.utils import profiling
 
-    return {"orb_describe": orb_kernel.launches,
-            "onehot_adjoint": scatter_kernel.launches_adjoint,
-            "onehot_gather": scatter_kernel.launches_gather}
+    return {"orb_describe": profiling.counter("k1.launches"),
+            "onehot_adjoint": profiling.counter("k2.launches"),
+            "onehot_gather": profiling.counter("k3.launches")}
 
 
 def zero_counts():
-    from dvm_slam_tpu_torch.ops import orb_kernel, scatter_kernel
+    from dvm_slam_tpu_torch.utils import profiling
 
-    orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
+    profiling.reset()
 
 
 def map_diff(a, b, fields=("kf_pose", "pt_pos")):
@@ -3735,11 +3736,11 @@ def main(kernels_only: bool = False) -> int:
         return 0
 
     # ---- 4. the slice through the kernel -------------------------------
-    orb_kernel.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     m, n_created, run_k = run_slice(imgs, depth0, cfg_k, dev)
     wall = time.perf_counter() - t0
-    launches = orb_kernel.launches
+    launches = counts_now()["orb_describe"]
     print(f"[4] bootstrap created {n_created} points; {len(run_k)} frames tracked in {wall:.2f} s "
           f"(first call included)")
     errs = [center_err(T, gt) for (_, T, _, _), gt in zip(run_k, poses[1:])]
@@ -3758,7 +3759,7 @@ def main(kernels_only: bool = False) -> int:
     # ---- 5. the same slice through the twin ----------------------------
     cfg_t = configs(False)
     _, n_created_t, run_t = run_slice(imgs[:N_PLAIN1 + 1], depth0, cfg_t, dev)
-    check(orb_kernel.launches == launches, "the twin path launched K1")
+    check(counts_now()["orb_describe"] == launches, "the twin path launched K1")
     check(n_created_t == n_created, f"twin bootstrap created {n_created_t} != {n_created}")
     inl_k, inl_t = [r[0] for r in run_k], [r[0] for r in run_t]
     pose_diff = max(float((a[1] - b[1]).abs().max()) for a, b in zip(run_k, run_t))
@@ -3792,14 +3793,12 @@ def main(kernels_only: bool = False) -> int:
     # ---- 9. slice 2 through the kernels -----------------------------------
     cfg2_k, cfg2_p = configs(None), configs(False)
     imgs2, poses2 = imgs_all[:N_FRAMES2], poses_all[:N_FRAMES2]
-    orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
+    zero_counts()
     t0 = time.perf_counter()
     m2, n2, run2 = run_slice2(imgs2, depth0, cfg2_k, dev, timed=True)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    counts = {"orb_describe": orb_kernel.launches,
-              "onehot_adjoint": scatter_kernel.launches_adjoint,
-              "onehot_gather": scatter_kernel.launches_gather}
+    counts = counts_now()
     made = [r[1] for r in run2]
     n_ba = sum(made)
     errs2 = [center_err(r[3], gt) for r, gt in zip(run2, poses2[1:])]
@@ -3844,9 +3843,7 @@ def main(kernels_only: bool = False) -> int:
 
     # ---- 10. slice 2 through the plain versions ----------------------------
     m2p, n2p, run2p = run_slice2(imgs2[:N_PLAIN2 + 1], depth0, cfg2_p, dev)
-    check(orb_kernel.launches == counts["orb_describe"]
-          and scatter_kernel.launches_adjoint == counts["onehot_adjoint"]
-          and scatter_kernel.launches_gather == counts["onehot_gather"],
+    check(counts_now() == counts,
           "the plain path launched a kernel")
     d_inl = [a[0] - b[0] for a, b in zip(run2, run2p)]
     d_pose = [float((a[3] - b[3]).abs().max()) for a, b in zip(run2, run2p)]
@@ -3887,16 +3884,14 @@ def main(kernels_only: bool = False) -> int:
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(out_dir, exist_ok=True)
     vocab = os.path.join(os.path.dirname(os.path.abspath(__file__)), VOCAB)
-    orb_kernel.launches = scatter_kernel.launches_adjoint = scatter_kernel.launches_gather = 0
+    zero_counts()
     t0 = time.perf_counter()
     run3 = run_slice3(imgs_all, dev, None, vocabulary=vocab, timed=True)
     frames3, kf3, ate3 = slice3_outcome(run3, poses_all,
                                         os.path.join(out_dir, "slice3_kernels_tum.txt"))
     torch.cuda.synchronize()
     wall3 = time.perf_counter() - t0
-    counts3 = {"orb_describe": orb_kernel.launches,
-               "onehot_adjoint": scatter_kernel.launches_adjoint,
-               "onehot_gather": scatter_kernel.launches_gather}
+    counts3 = counts_now()
     sys3 = run3["system"]
     t3, m3 = sys3.tracker, sys3.map
     n_kf3 = int(m3.n_kf)
@@ -3950,9 +3945,7 @@ def main(kernels_only: bool = False) -> int:
     run3p = run_slice3(imgs_all, dev, False, vocabulary=vocab)
     frames3p, kf3p, ate3p = slice3_outcome(run3p, poses_all,
                                            os.path.join(out_dir, "slice3_plain_tum.txt"))
-    check(orb_kernel.launches == counts3["orb_describe"]
-          and scatter_kernel.launches_adjoint == counts3["onehot_adjoint"]
-          and scatter_kernel.launches_gather == counts3["onehot_gather"],
+    check(counts_now() == counts3,
           "the plain path launched a kernel")
     (P_k, n_k, X_k), (P_p, n_p, X_p) = run3["init_map"], run3p["init_map"]
     d_init = float((P_k - P_p).abs().max())
@@ -3998,8 +3991,7 @@ def main(kernels_only: bool = False) -> int:
         instrument(run["system"], log, torch.cuda.synchronize)
         before = counts_now()
         if name == "kernels":
-            orb_kernel.launches = scatter_kernel.launches_adjoint = 0
-            scatter_kernel.launches_gather = 0
+            zero_counts()
         poses = drive6(run["system"], imgs_all, seq16, 60, log)
         run["system"].tracker.drain_auto()
         torch.cuda.synchronize()
@@ -4024,8 +4016,7 @@ def main(kernels_only: bool = False) -> int:
         instrument(sysm, log, torch.cuda.synchronize)
         before = counts_now()
         if name == "kernels":
-            orb_kernel.launches = scatter_kernel.launches_adjoint = 0
-            scatter_kernel.launches_gather = 0
+            zero_counts()
         t0 = time.perf_counter()
         # the plain path takes the first N_PLAIN17 calls, held call by call
         poses = drive6(sysm, imgs17, seq17 if uk is None else seq17[:N_PLAIN17], 0, log)
@@ -4048,8 +4039,7 @@ def main(kernels_only: bool = False) -> int:
     for name, uk in (("kernels", None), ("plain", False)):
         before = counts_now()
         if name == "kernels":
-            orb_kernel.launches = scatter_kernel.launches_adjoint = 0
-            scatter_kernel.launches_gather = 0
+            zero_counts()
         t0 = time.perf_counter()
         # the plain path takes the first N_PLAIN18 steps, held call by call
         n = N_STEPS18 if uk is None else N_PLAIN18

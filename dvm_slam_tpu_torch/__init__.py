@@ -26,7 +26,8 @@ counterpart is found by path and name:
               matplotlib viewer
   control/    velocity driver, follow-the-leader and NMPC controllers
   tools/      the operator console, `plot_run`, `train_vocab`
-  utils/      leveled logging, `StageTimer`
+  utils/      leveled logging; the tracer (spans on the main path, launch
+              counts of K1-K3) over `StageTimer`
 
 Port-only glue: `device.py` (precision policy), `convert.py` (numpy-dict
 exchange of map, frame and config with the JAX package) and `_build.py`

@@ -17,6 +17,7 @@ import torch
 
 from ..geometry import cameras
 from ..ops import fast, orb_descriptor, orb_kernel, pyramid, stereo
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,18 +107,17 @@ def _slot_consts(budgets, scales, device):
 
 
 def _detect(img, config: FrontendConfig):
-    """Pyramid, then FAST and the blur per level: (raws, blurs, xy [F,2] in
-    level px, score [F], valid [F]), each level contiguous for K1."""
+    """Pyramid and each level's blur, then FAST per level: (raws, blurs, xy
+    [F,2] in level px, score [F], valid [F]), each level contiguous for K1."""
     img = img.to(torch.float32)
-    levels = pyramid.build_pyramid(img, config.n_levels, config.scale_factor)
-    raws, blurs, xys, scores, valids = [], [], [], [], []
-    for im, budget in zip(levels, config.level_budgets):
-        xy, score, valid = fast.detect_level(im, config.ini_th, config.min_th, config.cell, budget)
-        raws.append(im.contiguous())
-        blurs.append(pyramid.gaussian_blur(im).contiguous())
-        xys.append(xy)
-        scores.append(score)
-        valids.append(valid)
+    with profiling.span("frontend.pyramid"):
+        levels = pyramid.build_pyramid(img, config.n_levels, config.scale_factor)
+        raws = [im.contiguous() for im in levels]
+        blurs = [pyramid.gaussian_blur(im).contiguous() for im in levels]
+    with profiling.span("frontend.fast"):
+        dets = [fast.detect_level(im, config.ini_th, config.min_th, config.cell, budget)
+                for im, budget in zip(levels, config.level_budgets)]
+    xys, scores, valids = zip(*dets)
     return raws, blurs, torch.cat(xys), torch.cat(scores), torch.cat(valids)
 
 
@@ -166,6 +166,7 @@ def _undistort_frame(f: Frame, K, dist, camera_model: str = "pinhole"):
     return f._replace(xy=torch.where(f.valid[:, None], xy_un, f.xy_raw))
 
 
+@profiling.traced("frontend.make_frame")
 def make_frame(img, K, dist, config: FrontendConfig, camera_model: str = "pinhole"):
     """Monocular frame (`Frame.cc:371`): extract, then undistort the
     keypoints ("pinhole": radial-tangential; "kb8": rectified fisheye

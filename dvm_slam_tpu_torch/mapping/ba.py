@@ -46,6 +46,7 @@ import torch
 
 from ..geometry import lie
 from ..ops import scatter
+from ..utils import profiling
 
 CHI2_MONO = 5.991
 HUBER_DELTA = math.sqrt(CHI2_MONO)
@@ -121,6 +122,7 @@ def _inv6x6_block(H, eps: float = 1e-12):
     return torch.cat([top, bot], -2)
 
 
+@profiling.traced("ba.bundle_adjust")
 def bundle_adjust(kf_pose, kf_fixed, kf_xy, kf_sigma2, obs_pt, pts, pt_opt, K,
                   iters: int = 10, damping: float = 1e-4, stage2_iters: int = 5,
                   kf_ur=None, bf=None, schur_iters: int = 32, use_kernel=None):

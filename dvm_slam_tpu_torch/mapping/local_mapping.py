@@ -33,6 +33,7 @@ from ..geometry import triangulation as tri
 from ..loopclosing import merge as merge_mod
 from ..ops import matching
 from ..ops.fast import _top_k
+from ..utils import profiling
 from . import ba, map_state, vi_ba
 
 
@@ -410,6 +411,7 @@ def _ba_writeback(m: map_state.MapState, ctx, new_poses, new_pts, inliers_c):
     return m._replace(kf_pose=kf_pose, pt_pos=pt_pos, kf_obs=kf_obs)
 
 
+@profiling.traced("mapping.local_ba")
 def local_ba(m: map_state.MapState, center, K, n_local: int = 16, n_fixed: int = 16,
              n_pts: int = 4096, iters: int = 6, n_levels: int = 8,
              scale_factor: float = 1.2, n_obs: int = 512, bf=None, use_kernel=None):
@@ -545,21 +547,27 @@ def _mapper_step(m, c, K, n_neighbors: int, n_levels: int, scale_factor: float,
                  ba_iters: int = 6, bf=None, use_kernel=None):
     """The per-keyframe chain: cull -> triangulate -> fuse -> point stats
     (-> windowed BA -> geometry-only point stats)."""
-    m = cull_points(m, c)
-    m, _ = create_new_points(m, c, K, n_neighbors=n_neighbors, n_levels=n_levels,
-                             scale_factor=scale_factor)
-    m = fuse_duplicates(m, c, K, n_neighbors=n_neighbors, n_levels=n_levels,
-                        scale_factor=scale_factor)
-    m = map_state.update_point_stats(m, n_levels, scale_factor)
+    with profiling.span("mapping.cull"):
+        m = cull_points(m, c)
+    with profiling.span("mapping.triangulate"):
+        m, _ = create_new_points(m, c, K, n_neighbors=n_neighbors, n_levels=n_levels,
+                                 scale_factor=scale_factor)
+    with profiling.span("mapping.fuse"):
+        m = fuse_duplicates(m, c, K, n_neighbors=n_neighbors, n_levels=n_levels,
+                            scale_factor=scale_factor)
+    with profiling.span("mapping.point_stats"):
+        m = map_state.update_point_stats(m, n_levels, scale_factor)
     if run_ba:
         m, _ = local_ba(m, c, K, n_local=ba_local, n_fixed=ba_fixed, n_pts=ba_pts,
                         iters=ba_iters, n_levels=n_levels, scale_factor=scale_factor, bf=bf,
                         use_kernel=use_kernel)
         # BA moved geometry; the descriptor vote is skipped as in the reference
-        m = map_state.update_point_stats(m, n_levels, scale_factor, with_desc=False)
+        with profiling.span("mapping.point_stats"):
+            m = map_state.update_point_stats(m, n_levels, scale_factor, with_desc=False)
     return m
 
 
+@profiling.traced("mapping.chain")
 def _mapper_chain(m, c, K, *, n_neighbors: int, n_levels: int, scale_factor: float,
                   run_ba_traced, ba_local: int, ba_fixed: int, ba_pts: int, ba_iters: int,
                   bf=None, use_kernel=None):
@@ -736,6 +744,7 @@ class LocalMapper:
                         use_kernel=fc.use_kernel)
         tracker.map = map_state.update_point_stats(m, fc.n_levels, fc.scale_factor)
 
+    @profiling.traced("mapping.chain")
     def on_new_keyframe(self, tracker, slot: int):
         """The per-keyframe chain (cull, triangulate, fuse, point stats,
         windowed BA every `run_ba_every` keyframes) around `slot`. With an

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..geometry import lie
+from ..utils import profiling
 
 
 class MapState(NamedTuple):
@@ -230,6 +231,7 @@ def _set_row(arr, i, value):
     return out
 
 
+@profiling.traced("mapping.add_keyframe")
 def add_keyframe(m: MapState, pose, xy, level, angle, desc, feat_valid, obs,
                  ur=None):
     """Append a keyframe at slot n_kf. obs: [F] int32 point slots (-1 none);

@@ -51,6 +51,7 @@ from ..ops import pyramid
 from ..placerec import vocabulary
 from ..tracking import relocalization
 from ..tracking import tracker as trk
+from ..utils import profiling
 
 MONOCULAR = "monocular"
 IMU_MONOCULAR = "imu-monocular"
@@ -136,10 +137,12 @@ class System:
 
     def track_monocular(self, img, timestamp: float):
         """`System::TrackMonocular`: grayscale (or RGB, averaged) image in,
-        world->camera SE3 [7] out (None before initialization)."""
-        img = self._prep(img)
-        pose = self.tracker.process_image(img, timestamp)
-        self._maybe_draw(img)
+        world->camera SE3 [7] out (None before initialization). The span
+        carries the number the tracker gives the frame."""
+        with profiling.span("entry.track_monocular", self.tracker.n_frames + 1):
+            img = self._prep(img)
+            pose = self.tracker.process_image(img, timestamp)
+            self._maybe_draw(img)
         return pose
 
     def _maybe_draw(self, img=None):

@@ -15,8 +15,9 @@ plain integers, the checks read only device, dtype, shape and contiguity, the
 device context is entered only off the current device, and the current
 device and stream are read as raw values.
 
-`launches` counts kernel launches (not twin calls), so a run can show that
-its main path went through the kernel.
+Each launch (not a twin call) is counted as the tracer's `k1.launches`
+(`utils/profiling.py`), so a run can show that its main path went through
+the kernel; each call is the span `k1`.
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ import functools
 import torch
 
 from .. import _build
+from ..utils import profiling
 from . import orb_descriptor
-
-launches = 0
 
 MAX_LEVELS = 64  # the kernel's level table holds this many levels (8 frames of 8)
 
@@ -104,12 +104,12 @@ def level_table(raws, blurs, xy, offsets) -> array.array:
                        + hs + ws + list(offsets))
 
 
+@profiling.traced("k1")
 def orient_and_describe_levels(raws, blurs, xy, offsets):
     """(angle [F] f32, desc [F,256] uint8) of a frame's keypoints `xy` [F,2]
     in level pixels, level l's being xy[offsets[l]:offsets[l+1]] on the raw
     level `raws[l]` and its blur `blurs[l]`: one kernel launch for CUDA
     tensors, the twin for CPU tensors."""
-    global launches
     table = level_table(raws, blurs, xy, offsets)
     if xy.device.type == "cpu":
         return orb_descriptor.orient_and_describe_levels(raws, blurs, xy, offsets)
@@ -129,7 +129,7 @@ def orient_and_describe_levels(raws, blurs, xy, offsets):
                            torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"orb_describe_levels launch failed: cudaError {err}")
-    launches += 1
+    profiling.count_launch("k1")
     return angle, desc
 
 

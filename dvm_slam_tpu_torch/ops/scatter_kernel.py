@@ -14,8 +14,9 @@ strides, the device context is entered only when the tensor is not on the
 current device, and the current device and stream are read as raw values
 (`torch.cuda.current_stream(dev)` builds a Stream object on every call).
 
-`launches_adjoint` and `launches_gather` count kernel launches, so a run can
-show that its main path went through the kernels.
+Each launch is counted as the tracer's `k2.launches` or `k3.launches`
+(`utils/profiling.py`), so a run can show that its main path went through
+the kernels; each call is the span `k2` or `k3`.
 """
 
 from __future__ import annotations
@@ -25,9 +26,7 @@ import ctypes
 import torch
 
 from .. import _build
-
-launches_adjoint = 0
-launches_gather = 0
+from ..utils import profiling
 
 _fns = None  # (onehot_adjoint, onehot_gather), bound at first use
 
@@ -71,12 +70,12 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+@profiling.traced("k2")
 def onehot_adjoint(vals, pidx, n_cols: int):
     """K2: `out[l,g,p] = sum_f vals[l,g,f] * (pidx[l,f] == p)`, summed from 0
     in ascending f. vals [L,G,F] f32 with any strides (`bundle_adjust`
     passes a view of feature-major [L,F,G] storage), pidx [L,F] int32
     contiguous -> [L,G,n_cols] f32."""
-    global launches_adjoint
     dev = _check("onehot_adjoint", vals, pidx, 3)
     if dev != torch._C._cuda_getDevice():
         with torch.cuda.device(dev):
@@ -91,14 +90,14 @@ def onehot_adjoint(vals, pidx, n_cols: int):
     err = (_fns or _bind())[0](vals.data_ptr(), pidx.data_ptr(), out.data_ptr(), L, G, F,
                                n_cols, sL, sG, sF, torch._C._cuda_getCurrentRawStream(dev))
     _raise_on(err, "onehot_adjoint")
-    launches_adjoint += 1
+    profiling.count_launch("k2")
     return out
 
 
+@profiling.traced("k3")
 def onehot_gather(pts_pl, pidx):
     """K3: `out[l,g,f] = pts_pl[g, pidx[l,f]]`, 0 where pidx is outside
     [0, P). pts_pl [G,P] f32 contiguous, pidx [L,F] int32 -> [L,G,F] f32."""
-    global launches_gather
     dev = _check("onehot_gather", pts_pl, pidx, 2)
     if dev != torch._C._cuda_getDevice():
         with torch.cuda.device(dev):
@@ -113,5 +112,5 @@ def onehot_gather(pts_pl, pidx):
     err = (_fns or _bind())[1](pts_pl.data_ptr(), pidx.data_ptr(), out.data_ptr(), L, G, F, P,
                                torch._C._cuda_getCurrentRawStream(dev))
     _raise_on(err, "onehot_gather")
-    launches_gather += 1
+    profiling.count_launch("k3")
     return out

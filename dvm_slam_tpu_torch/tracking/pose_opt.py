@@ -27,6 +27,7 @@ import math
 import torch
 
 from ..geometry import lie
+from ..utils import profiling
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815  # chi2(3 dof)
@@ -72,6 +73,7 @@ def _stereo_residual_and_plane(T, pts, ur, bf, K):
     return r_ur, Ju + Jz
 
 
+@profiling.traced("tracking.pose_optimization")
 def pose_optimization(T_init, pts, uv, sigma2, valid, K,
                       rounds: int = 4, iters: int = 10, damping: float = 1e-3,
                       ur=None, bf=None):

@@ -37,6 +37,7 @@ from ..frontend.extractor import (Frame, FrontendConfig, make_frame, make_frame_
 from ..geometry import cameras, imu, lie, two_view
 from ..mapping import local_mapping, map_state
 from ..ops import matching
+from ..utils import profiling
 from . import pose_opt
 
 
@@ -119,6 +120,7 @@ def _match_and_assign(m, uv, vis, level, radii, frame: Frame, max_dist, ratio):
     return torch.where(ok, idx, -1), ok
 
 
+@profiling.traced("tracking.track_frame")
 def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerConfig):
     """Two-stage match + pose-only BA, with the stereo rows when the frame
     carries a right-u channel and the config a baseline. Returns
@@ -133,12 +135,13 @@ def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerC
     level_of = lambda f: frame.level[f].to(torch.int64)  # noqa: E731
 
     # ---- stage 1: wide search at the predicted pose (TrackWithMotionModel)
-    uv, vis, level, _ = project_points(m, T_pred, K, config)
-    radii1 = 15.0 * scales[level.to(torch.int64)]
-    feat1, ok1 = _match_and_assign(m, uv, vis, level, radii1, frame, matching.TH_HIGH, 0.9)
-    if int(torch.sum(ok1)) < 20:
-        feat1, ok1 = _match_and_assign(m, uv, vis, level, radii1 * 4.0, frame,
-                                       matching.TH_HIGH, 0.9)
+    with profiling.span("tracking.match"):
+        uv, vis, level, _ = project_points(m, T_pred, K, config)
+        radii1 = 15.0 * scales[level.to(torch.int64)]
+        feat1, ok1 = _match_and_assign(m, uv, vis, level, radii1, frame, matching.TH_HIGH, 0.9)
+        if int(torch.sum(ok1)) < 20:
+            feat1, ok1 = _match_and_assign(m, uv, vis, level, radii1 * 4.0, frame,
+                                           matching.TH_HIGH, 0.9)
     bf = K[0] * config.baseline if frame.ur is not None and config.baseline > 0.0 else None
     f1 = torch.clamp(feat1, min=0)
     ur1 = None if bf is None else torch.where(ok1, frame.ur[f1], -1.0)
@@ -147,13 +150,15 @@ def track_frame(m: map_state.MapState, frame: Frame, T_pred, K, config: TrackerC
     n1 = torch.sum(inl1, dtype=torch.int32)
 
     # ---- stage 2: tight search at the refined pose (TrackLocalMap)
-    uv2, vis2, level2, view_cos2 = project_points(m, T1, K, config)
-    base_r = torch.where(view_cos2 > 0.998, 2.5, 4.0)
-    radii2 = base_r * scales[level2.to(torch.int64)]
-    feat2, ok2 = _match_and_assign(m, uv2, vis2, level2, radii2, frame, matching.TH_HIGH, 0.8)
-    # keep stage-1 inlier associations where stage 2 found nothing
-    feat = torch.where(ok2, feat2, torch.where(inl1, feat1, -1))
-    okc = matching.dedupe_matches(feat, feat >= 0, frame.capacity)
+    with profiling.span("tracking.match"):
+        uv2, vis2, level2, view_cos2 = project_points(m, T1, K, config)
+        base_r = torch.where(view_cos2 > 0.998, 2.5, 4.0)
+        radii2 = base_r * scales[level2.to(torch.int64)]
+        feat2, ok2 = _match_and_assign(m, uv2, vis2, level2, radii2, frame, matching.TH_HIGH,
+                                       0.8)
+        # keep stage-1 inlier associations where stage 2 found nothing
+        feat = torch.where(ok2, feat2, torch.where(inl1, feat1, -1))
+        okc = matching.dedupe_matches(feat, feat >= 0, frame.capacity)
     fc2 = torch.clamp(feat, min=0)
     ur2 = None if bf is None else torch.where(okc, frame.ur[fc2], -1.0)
     T2, inl2, _ = pose_opt.pose_optimization(
@@ -312,16 +317,18 @@ def autonomous_step(img, m: map_state.MapState, st: AutoState, K, dist,
 
 
 def autonomous_step_batch(imgs, m: map_state.MapState, st: AutoState, K, dist,
-                          config: TrackerConfig, mapper_cfg: tuple):
+                          config: TrackerConfig, mapper_cfg: tuple, frames=None):
     """`autonomous_step` over the frames `imgs` [B,H,W] in turn (the
-    reference's `lax.scan`). Returns (map, state, outcomes [B,10] f32: pose 7
-    | made_kf | good | n_inliers), the reference's layout."""
+    reference's `lax.scan`), each step the span `lane.step` of its number
+    in `frames`. Returns (map, state, outcomes [B,10] f32: pose 7 | made_kf
+    | good | n_inliers), the reference's layout."""
     rows = []
-    for img in imgs:
-        m, st, fl = autonomous_step(img, m, st, K, dist, config, mapper_cfg)
-        rows.append(torch.cat([st.T_cw, torch.stack([fl.made_kf.to(torch.float32),
-                                                     fl.good.to(torch.float32),
-                                                     fl.n_inliers.to(torch.float32)])]))
+    for i, img in enumerate(imgs):
+        with profiling.span("lane.step", None if frames is None else frames[i]):
+            m, st, fl = autonomous_step(img, m, st, K, dist, config, mapper_cfg)
+            rows.append(torch.cat([st.T_cw, torch.stack([fl.made_kf.to(torch.float32),
+                                                         fl.good.to(torch.float32),
+                                                         fl.n_inliers.to(torch.float32)])]))
     return m, st, torch.stack(rows)
 
 
@@ -480,13 +487,13 @@ class MonocularTracker:
         # chain inside the step; outcome rows retire up to async_depth late
         self.autonomous = False
         self._auto_state = None
-        self._auto_flags = []    # [(timestamps, outcome rows copy, n frames)]
+        self._auto_flags = []    # [(timestamps, outcome rows copy, n frames, frame numbers)]
         # auto_mode: (re)enter the autonomous lane whenever tracking is OK
         self.auto_mode = False
         # auto_batch: frames per autonomous dispatch; a loss inside a batch
         # hands the rest of the buffered frames back to the host path
         self.auto_batch = 1
-        self._auto_imgs = []     # buffered (img, ts) awaiting a full batch
+        self._auto_imgs = []     # buffered (img, ts, frame number) awaiting a full batch
         # a keyframe retired from the autonomous lane while the atlas holds
         # stored maps: drain and try the merge-back
         self._atlas_check_pending = False
@@ -921,19 +928,23 @@ class MonocularTracker:
         self.autonomous = True
         return True
 
-    def _auto_dispatch(self, imgs, tss):
+    def _auto_dispatch(self, imgs, tss, fids):
         m, st, rows = autonomous_step_batch(imgs, self.map, self._auto_state, self.K,
-                                            self.dist, self.config, self._auto_cfg)
-        self._push_auto_record(m, st, tss, rows)
+                                            self.dist, self.config, self._auto_cfg, fids)
+        self._push_auto_record(m, st, tss, rows, fids)
 
     def _process_autonomous(self, img, timestamp: float):
         B = max(int(self.auto_batch), 1)
-        self._auto_imgs.append((img, timestamp))
+        # the frame's number (its submission count) rides with it to its
+        # step and its retire
+        with profiling.span("lane.submit", self.n_frames):
+            self._auto_imgs.append((img, timestamp, self.n_frames))
         if len(self._auto_imgs) >= B:
-            imgs = torch.stack([im for im, _ in self._auto_imgs])
-            tss = [t for _, t in self._auto_imgs]
+            imgs = torch.stack([im for im, _, _ in self._auto_imgs])
+            tss = [t for _, t, _ in self._auto_imgs]
+            fids = [f for _, _, f in self._auto_imgs]
             self._auto_imgs = []
-            self._auto_dispatch(imgs, tss)
+            self._auto_dispatch(imgs, tss, fids)
         # retire a record once its rows have landed and a newer record is
         # out, or when more than async_depth frames are pending
         while (self.autonomous and self._auto_flags
@@ -949,7 +960,7 @@ class MonocularTracker:
                 self._auto_imgs = []
                 self.exit_autonomous(drain=False)
                 pose = self._auto_state.T_cw
-                for im, t in pending:
+                for im, t, _ in pending:
                     self.n_frames -= 1  # counted at first submission
                     p = self.process_image(im, t)
                     pose = p if p is not None else pose
@@ -961,10 +972,10 @@ class MonocularTracker:
                 self._atlas_merge_back()
         return self._auto_state.T_cw
 
-    def _push_auto_record(self, m, st, tss, rows):
+    def _push_auto_record(self, m, st, tss, rows, fids):
         self.map = m
         self._auto_state = st
-        self._auto_flags.append((tss, _HostCopy(rows), len(tss)))
+        self._auto_flags.append((tss, _HostCopy(rows), len(tss), fids))
 
     def _pending_auto_frames(self):
         return sum(rec[2] for rec in self._auto_flags)
@@ -978,38 +989,39 @@ class MonocularTracker:
         """Fold one record (1..B frames) into the host mirrors: trajectory
         rows, keyframe metadata, state machine. Returns True when the record
         ends with a lost frame and the host must leave the autonomous lane."""
-        tss, copy, n = self._auto_flags.pop(0)
+        tss, copy, n, fids = self._auto_flags.pop(0)
         rec = np.atleast_2d(copy.numpy()).copy()     # [B,10]: pose 7|kf|good|inl
         poses = rec[:, :7]
         made = rec[:, 7] > 0.5
         good = rec[:, 8] > 0.5
         ninl = rec[:, 9]
         for i in range(n):
-            ts = tss[i]
-            # only tracked frames leave a row: the chain holds the last pose
-            # on a bad frame
-            if good[i]:
-                self.trajectory.append((ts, poses[i], OK))
-            if made[i]:
-                s = self.n_kf_host
-                self.n_kf_host += 1
-                self.meta.kf_uuid[s] = self._new_uuids(1)[0]
-                self.meta.kf_creator[s] = self.meta.agent_id
-                self.last_kf_slot = s
-                self.kf_timestamps[s] = ts
-                self.ref_kf_tracked = int(ninl[i])
-                self.meta_dirty = True
-                if self.local_mapper is not None:
-                    self.local_mapper._kf_count += 1
-                if self.atlas is not None and self.atlas.inactive:
-                    self._atlas_check_pending = True
-            if not good[i]:
-                self._lost_frames += 1
-                self.state = RECENTLY_LOST if self.state == OK else LOST
-            else:
-                self._lost_frames = 0
-                self.state = OK
-                self._last_good_ts = ts
+            with profiling.span("lane.retire", fids[i]):
+                ts = tss[i]
+                # only tracked frames leave a row: the chain holds the last pose
+                # on a bad frame
+                if good[i]:
+                    self.trajectory.append((ts, poses[i], OK))
+                if made[i]:
+                    s = self.n_kf_host
+                    self.n_kf_host += 1
+                    self.meta.kf_uuid[s] = self._new_uuids(1)[0]
+                    self.meta.kf_creator[s] = self.meta.agent_id
+                    self.last_kf_slot = s
+                    self.kf_timestamps[s] = ts
+                    self.ref_kf_tracked = int(ninl[i])
+                    self.meta_dirty = True
+                    if self.local_mapper is not None:
+                        self.local_mapper._kf_count += 1
+                    if self.atlas is not None and self.atlas.inactive:
+                        self._atlas_check_pending = True
+                if not good[i]:
+                    self._lost_frames += 1
+                    self.state = RECENTLY_LOST if self.state == OK else LOST
+                else:
+                    self._lost_frames = 0
+                    self.state = OK
+                    self._last_good_ts = ts
         # leave only when the record ENDS lost: the chain recovers from a
         # bad frame inside a batch by itself
         return not bool(good[-1])
@@ -1033,8 +1045,8 @@ class MonocularTracker:
 
     def _flush_auto_buffer(self):
         """Dispatch the frames buffered for a partial batch one at a time."""
-        for img, ts in self._auto_imgs:
-            self._auto_dispatch(img[None], [ts])
+        for img, ts, fid in self._auto_imgs:
+            self._auto_dispatch(img[None], [ts], [fid])
         self._auto_imgs = []
 
     def exit_autonomous(self, drain: bool = True):

@@ -1,0 +1,21 @@
+"""lane_in_flight_ms_p95: the 95th percentile, over the frames the
+autonomous lane took in the profiled stretch, of the program's time from
+the end of a frame's `lane.step` to the end of its `lane.retire`: the wait
+for the rest of its batch's steps and for the next record to be
+dispatched (`program_trace.py`)."""
+
+import numpy as np
+
+from portbench import program_trace
+
+SOURCE = "program_span"
+UNIT = "ms"
+LAYER = "entry"
+MOVES = "setup_s"
+
+
+def read(r):
+    j = program_trace.from_readings(r)
+    if not j or not j.get("lane"):
+        return None
+    return float(np.percentile([row[3] for row in j["lane"]], 95))

@@ -1,0 +1,18 @@
+"""tracking_launches_per_frame: the kernels launched inside the program's
+tracking spans (`tracking.*`: `track_frame`, its searches and its two
+pose optimizations) in the profiled stretch, over the frames whose poses
+came back in it (`program_trace.py`)."""
+
+from portbench import program_trace
+
+SOURCE = "device_trace"
+UNIT = "launches"
+LAYER = "tracking"
+MOVES = "setup_s"
+
+
+def read(r):
+    j = program_trace.from_readings(r)
+    if not j or not j["launches"]:       # no device events: a run on the CPU
+        return None
+    return j["launches_by_layer"].get("tracking", 0) / j["frames"]

@@ -26,6 +26,7 @@ from dvm_slam_tpu_torch.ops import orb_descriptor as tod
 from dvm_slam_tpu_torch.ops import orb_kernel
 from dvm_slam_tpu_torch.ops import pyramid as tpyr
 from dvm_slam_tpu_torch.ops import stereo as tst
+from dvm_slam_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -170,10 +171,10 @@ class TestOrbTwin:
 
     def test_wrapper_runs_twin_on_cpu(self, images):
         img, blur, xy = _kp_inputs(images["random"])
-        before = orb_kernel.launches
+        before = profiling.counter("k1.launches")
         ang_w, desc_w = orb_kernel.orient_and_describe(_t(img), _t(blur), _t(xy))
         ang_t, desc_t = tod.orient_and_describe(_t(img), _t(blur), _t(xy))
-        assert orb_kernel.launches == before  # no kernel on the CPU
+        assert profiling.counter("k1.launches") == before  # no kernel on the CPU
         np.testing.assert_array_equal(ang_w.numpy(), ang_t.numpy())
         np.testing.assert_array_equal(desc_w.numpy(), desc_t.numpy())
 
@@ -266,10 +267,10 @@ class TestOrbLevels:
 
     def test_wrapper_runs_plain_levels_on_cpu(self, images):
         args = _levels_to(*_frame_levels(images["random"]))
-        before = orb_kernel.launches
+        before = profiling.counter("k1.launches")
         ang_w, desc_w = orb_kernel.orient_and_describe_levels(*args)
         ang_p, desc_p = tod.orient_and_describe_levels(*args)
-        assert orb_kernel.launches == before  # no kernel on the CPU
+        assert profiling.counter("k1.launches") == before  # no kernel on the CPU
         assert torch.equal(ang_w, ang_p) and torch.equal(desc_w, desc_p)
 
     def test_level_table_layout(self, images):
@@ -348,12 +349,12 @@ class TestOrbLevels:
         elif bad == "image strided":
             raws[1] = raws[1].t().contiguous().t()
             blurs[1] = blurs[1].t().contiguous().t()
-        before = orb_kernel.launches
+        before = profiling.counter("k1.launches")
         with pytest.raises(error, match=match):
             orb_kernel.level_table(raws, blurs, xy, offs)
         with pytest.raises(error, match=match):
             orb_kernel.orient_and_describe_levels(raws, blurs, xy, offs)
-        assert orb_kernel.launches == before
+        assert profiling.counter("k1.launches") == before
 
 
 @pytest.mark.cuda
@@ -364,9 +365,9 @@ def test_levels_kernel_matches_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the K1 kernel has no CPU mode")
     args = _levels_to(*_adversarial_levels(), dev=torch.device("cuda"))
-    before = orb_kernel.launches
+    before = profiling.counter("k1.launches")
     ang_k, desc_k = orb_kernel.orient_and_describe_levels(*args)
-    assert orb_kernel.launches == before + 1
+    assert profiling.counter("k1.launches") == before + 1
     ang_t, desc_t = tod.orient_and_describe_levels(*args)
     torch.cuda.synchronize()
     assert float((ang_k - ang_t).abs().max()) <= 1e-6
@@ -381,11 +382,11 @@ def test_kernel_matches_twin_on_card(images):
         pytest.skip("needs a CUDA card: the K1 kernel has no CPU mode")
     img, blur, xy = _kp_inputs(images["rendered"])
     dev = torch.device("cuda")
-    before = orb_kernel.launches
+    before = profiling.counter("k1.launches")
     ang_k, desc_k = orb_kernel.orient_and_describe(_t(img).to(dev), _t(blur).to(dev), _t(xy).to(dev))
     ang_t, desc_t = tod.orient_and_describe(_t(img).to(dev), _t(blur).to(dev), _t(xy).to(dev))
     torch.cuda.synchronize()
-    assert orb_kernel.launches == before + 1
+    assert profiling.counter("k1.launches") == before + 1
     np.testing.assert_allclose(ang_k.cpu().numpy(), ang_t.cpu().numpy(), atol=1e-4)
     np.testing.assert_array_equal(desc_k.cpu().numpy(), desc_t.cpu().numpy())
 

@@ -613,11 +613,11 @@ class TestTrackerAtlasHooks:
         rows[:, 8] = 1.0
         rows[1, 7] = 1.0                      # the second frame made a keyframe
         rows[:, 9] = 50
-        t._auto_flags = [([1.0, 1.1], ttrk._HostCopy(torch.from_numpy(rows)), 2)]
+        t._auto_flags = [([1.0, 1.1], ttrk._HostCopy(torch.from_numpy(rows)), 2, [1, 2])]
         t._retire_auto_record()
         assert not t._atlas_check_pending      # no stored map: nothing to merge into
         t.atlas.inactive.append(object())
-        t._auto_flags = [([1.2, 1.3], ttrk._HostCopy(torch.from_numpy(rows)), 2)]
+        t._auto_flags = [([1.2, 1.3], ttrk._HostCopy(torch.from_numpy(rows)), 2, [3, 4])]
         t._retire_auto_record()
         assert t._atlas_check_pending and t.last_kf_slot == 1
         t.autonomous, t.auto_batch = True, 4

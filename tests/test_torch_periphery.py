@@ -341,16 +341,6 @@ class TestStageTimer:
             pass
         assert set(rep["stage_a"]) == set(j.report()["stage_a"])
 
-    def test_dump(self, tmp_path):
-        t = tprof.StageTimer()
-        for _ in range(3):
-            t.start("x")
-            t.stop("x")
-        p = str(tmp_path / "times.json")
-        t.dump(p)
-        with open(p) as f:
-            assert json.load(f)["x"]["n"] == 3
-
 
 # --------------------------------------------------------------------------
 # control and sim
